@@ -1,8 +1,8 @@
-"""libde265_tpu: a TPU-native HEVC Main-profile decode engine.
+"""libde265_tpu: an accelerator-resident HEVC decode engine in JAX.
 
 Brand-new implementation with the capabilities of libde265
 (github.com/ChristianFeldmann/libde265): serial bitstream/CABAC front-end
-producing batched decode plans, JAX/XLA/Pallas back-end for pixel
+producing batched decode plans, JAX/XLA back-end for pixel
 reconstruction, sharded across device meshes for tiles/frames.
 """
 from .decoder import Decoder

@@ -22,6 +22,8 @@ class DecodedPicture:
     plan: object = None   # decode-plan metadata (FramePlan) for structure
                           # inspection (tools/sherlock.py overlays)
     pts: object = None    # presentation timestamp (de265_get_image_PTS)
+    route: str = None     # backend="device": "fused" / "hybrid" / "numpy"
+                          # (device_stream.py), None on host backends
 
     @property
     def width(self):
@@ -143,21 +145,13 @@ class _RefShim:
         self.pics[fid] = p
 
 
-def decode_stream_native(data: bytes, backend="numpy", **kw):
-    """Decode a whole Annex-B stream using the C++ front-end
-    (native/libhevc_frontend.so) + the selected reconstruction backend
-    ("numpy" reference or "device" = the fused device-resident frame
-    program, device_stream.py). Returns pictures in output order, same
-    results either way."""
+def parse_stream_native(data: bytes):
+    """Parse a whole Annex-B stream with the C++ front-end
+    (native/libhevc_frontend.so): parameter sets first, then every
+    picture's FramePlan in decode order."""
     from .native_frontend import NativeFrontend
     from .bitstream.nal import split_annexb
     from .bitstream.paramsets import read_sps, read_pps
-    if backend == "device":
-        reconstruct_frame = None
-    else:
-        from .reconstruct import reconstruct_frame
-    import numpy as np
-
     spss, ppss = {}, {}
     for u in split_annexb(data):
         t = u.header.nal_unit_type
@@ -173,8 +167,18 @@ def decode_stream_native(data: bytes, backend="numpy", **kw):
             # what remains (reference: add_warning + continue,
             # decctx.cc:1593-1595 / de265.h DE265_WARNING_SPS_HEADER_INVALID)
             continue
-    fe = NativeFrontend()
-    plans = fe.parse(data, spss, ppss)
+    return NativeFrontend().parse(data, spss, ppss)
+
+
+def decode_stream_native(data: bytes, backend="numpy", **kw):
+    """Decode a whole Annex-B stream using the C++ front-end
+    (native/libhevc_frontend.so) + the selected reconstruction backend
+    ("numpy" reference or "device" = the fused device-resident frame
+    program, device_stream.py). Returns pictures in output order, same
+    results either way."""
+    if backend != "device":
+        from .reconstruct import reconstruct_frame
+    plans = parse_stream_native(data)
     refs = _RefShim()
     done = []
     if backend == "device":
@@ -187,7 +191,8 @@ def decode_stream_native(data: bytes, backend="numpy", **kw):
                 done.append(plan)
         for plan in done:
             refs.add(plan.frame_id, plan, dev.planes_of(plan.frame_id))
-        return _order_and_crop(done, refs)
+        return _order_and_crop(done, refs, {
+            fid: f["route"] for fid, f in dev.frames.items()} if dev else {})
     for plan in plans:
         if plan.nal_type == -1:  # concealment frame: grey planes
             from .plan import grey_planes
@@ -200,9 +205,10 @@ def decode_stream_native(data: bytes, backend="numpy", **kw):
     return _order_and_crop(done, refs)
 
 
-def _order_and_crop(done, refs):
+def _order_and_crop(done, refs, routes=None):
     """Reorder decoded plans by POC within IDR-delimited groups, apply the
-    conformance window, return DecodedPictures."""
+    conformance window, return DecodedPictures (tagged with their decode
+    route when `routes` maps frame ids to one)."""
     out = []
     group = []
     for plan in done:
@@ -225,5 +231,6 @@ def _order_and_crop(done, refs):
             planes = [planes[0][t:plan.H - b, l:plan.W - r],
                       planes[1][ct:planes[1].shape[0] - cb2, cl:planes[1].shape[1] - cr_],
                       planes[2][ct:planes[2].shape[0] - cb2, cl:planes[2].shape[1] - cr_]]
-        pics.append(DecodedPicture(poc=plan.poc, planes=planes, plan=plan))
+        pics.append(DecodedPicture(poc=plan.poc, planes=planes, plan=plan,
+                                   route=(routes or {}).get(plan.frame_id)))
     return pics

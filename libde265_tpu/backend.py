@@ -1,7 +1,7 @@
-"""TPU backend: batched device-side frame reconstruction.
+"""Device backend: batched device-side frame reconstruction.
 
 The serial front-end produces a FramePlan; this module packs its work lists
-into dense, size-bucketed tensors (the TPU mirror of the reference's
+into dense, size-bucketed tensors (the batched mirror of the reference's
 acceleration_functions dispatch by block size, acceleration.h:29-201) and runs
 the pixel pipeline on device:
 
@@ -64,8 +64,8 @@ def residual_batch_device(coeffs, qp, log2, is_dst, bitdepth=8):
 def scatter_residuals(plane, res, xs, ys, log2, maxv):
     """plane (H,W) int32; res (N,n,n) at block-aligned (xs,ys): row-scatter
     into a slot table (TUs never overlap -> unique slots), reshape to a full
-    residual plane, add+clip. ~5x faster than elementwise 2-D scatter on TPU
-    (XLA serializes the latter)."""
+    residual plane, add+clip (one row scatter instead of an elementwise
+    2-D scatter)."""
     H, W = plane.shape
     n = 1 << log2
     # CEIL lattice: plane dims need not be n-multiples (1080p with

@@ -6,7 +6,7 @@ Capability counterpart of /root/reference/libde265/slice.cc:1507-5072
 (read_coding_tree_unit, read_coding_quadtree, read_coding_unit,
 read_transform_tree/unit, residual_coding, read_sao, decode_substream) —
 re-designed so that the serial front-end only touches syntax + metadata
-grids, while pixel work is deferred to TPU kernels via plan.TURecord/PURecord.
+grids, while pixel work is deferred to device kernels via plan.TURecord/PURecord.
 """
 import numpy as np
 

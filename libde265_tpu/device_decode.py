@@ -2,7 +2,7 @@
 per-frame pipeline (MC -> inter residual -> PCM -> intra wavefront ->
 deblock -> SAO), all bit-exact vs the numpy reference backend.
 
-This is the TPU production path; reconstruct.reconstruct_frame (numpy) is the
+This is the hybrid device path; reconstruct.reconstruct_frame (numpy) is the
 oracle/fallback.
 """
 import numpy as np

@@ -1,4 +1,4 @@
-"""Typed error / warning taxonomy + bounded warning queue.
+"""Typed error / warning catalogue + bounded warning queue.
 
 Capability counterpart of the de265_error codes and the decoder warning
 queue (/root/reference/libde265/de265.h:53-138, decctx error_queue
@@ -23,7 +23,7 @@ class DecodeError(enum.IntEnum):
 
 
 class Warning(enum.IntEnum):
-    """Warning codes (taxonomy parity with de265.h:110-138)."""
+    """Warning codes (parity with the de265.h:110-138 catalogue)."""
     END_OF_STREAM = 100
     PREMATURE_END_OF_SLICE_SEGMENT = 101
     INCORRECT_ENTRY_POINT_OFFSET = 102
@@ -57,7 +57,7 @@ class Warning(enum.IntEnum):
     BIT_DEPTH_OF_CURRENT_IMAGE_DOES_NOT_MATCH_SPS = 130
     REFERENCE_IMAGE_CHROMA_FORMAT_DOES_NOT_MATCH = 131
     INVALID_SLICE_HEADER_INDEX_ACCESS = 132
-    # additions beyond the reference taxonomy
+    # additions beyond the reference catalogue
     CHECKSUM_MISMATCH = 150
     NAL_PARSING_ERROR = 151
     SLICE_DATA_CORRUPTED = 152

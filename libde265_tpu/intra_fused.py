@@ -3,7 +3,7 @@ program.
 
 The reference decodes intra TUs inline in the serial CTB loop
 (/root/reference/libde265/intrapred.cc:1074-1164, slice.cc:3424-3488).
-The TPU answer keeps whole frames device-resident: the host assigns every
+The device path keeps whole frames device-resident: the host assigns every
 intra TU a wavefront *level* (longest border-dependency chain,
 intra_wavefront.py semantics) and ships, per (luma/chroma, log2) class,
 a flat level-sorted TU array plus per-level offsets. On device a single
@@ -13,7 +13,7 @@ Y|Cb|Cr plane buffer, substitutes via the host-packed availability bits
 (spec 8.4.4.2.2), predicts (ops/intra_jax.predict_core — shared with the
 hybrid oracle path), adds the pre-computed residual and scatters back.
 Residuals are level-independent, so ONE batched inverse transform per
-class runs before the loop (MXU), leaving only the serial-by-nature
+class runs before the loop, leaving only the serial-by-nature
 border chain inside it.
 
 Host-side cost is vectorized numpy except the per-TU level DP (a strict
@@ -132,16 +132,7 @@ def _border_ok(plan, xs, ys, cidx_arr, log2):
     Availability is constant within each aligned run of border samples
     that shares one 4x4-luma-grid cell (4 luma / 2 chroma-in-4:2:0
     samples), so the decision is computed once per run and expanded —
-    4x (2x) fewer gathers than per-sample. Results are memoized on the
-    plan: stream_cfg's hole probe and pack_intra ask for the same
-    classes (the pack wall on 4K I-frames was this function)."""
-    cache = getattr(plan, "_border_ok_cache", None)
-    if cache is None:
-        cache = plan._border_ok_cache = {}
-    key = (int(log2), xs.tobytes(), ys.tobytes(), cidx_arr.tobytes())
-    hit = cache.get(key)
-    if hit is not None:
-        return hit
+    4x (2x) fewer gathers than per-sample."""
     N = xs.shape[0]
     is_luma = N > 0 and not (cidx_arr != 0).any()
     is_chroma = N > 0 and not (cidx_arr == 0).any()
@@ -151,13 +142,9 @@ def _border_ok(plan, xs, ys, cidx_arr, log2):
         scx = 1 if is_luma else subw
         scy = 1 if is_luma else subh
         if 4 // scx > 1 or 4 // scy > 1:
-            ok = _border_ok_runs(plan, xs, ys, is_luma, subw, subh,
-                                 scx, scy, log2)
-            cache[key] = ok
-            return ok
-    ok = _border_ok_dense(plan, xs, ys, cidx_arr, log2)
-    cache[key] = ok
-    return ok
+            return _border_ok_runs(plan, xs, ys, is_luma, subw, subh,
+                                   scx, scy, log2)
+    return _border_ok_dense(plan, xs, ys, cidx_arr, log2)
 
 
 def _border_ok_runs(plan, xs, ys, is_luma, subw, subh, scx, scy, log2):
@@ -270,91 +257,6 @@ def intra_frame_stats(plan):
     return n_levels, out
 
 
-def _cumcount(sorted_keys):
-    """Position of each element within its equal-key run (keys sorted)."""
-    return np.arange(sorted_keys.size) - \
-        np.searchsorted(sorted_keys, sorted_keys, side="left")
-
-
-def pack_scan_perms(plan, cfg, cls_idx):
-    """Host: slot permutations for the Pallas band-scan kernel
-    (ops/pallas/intra_scan.py). TUs are ordered by (CTB row band,
-    global z-scan address) — decode order within each tile, which the
-    kernel's serial walk requires. Slot value = row_in_class*4 + rank;
-    -1 = padding. Emits ispm_0 (luma) and ispm_b / ispm_r (chroma
-    Cb/Cr pair rows)."""
-    t = {}
-    zg4 = _avail_grids(plan)[0]
-    tm = plan._tu_arrays[0]
-    ctb = 1 << plan.sps.Log2CtbSizeY
-    NB = -(-plan.H // ctb)
-    KL, KC = cfg.intra_scan[:2]
-    lcls = [e[1] for e in cfg.intra if e[0] == 0]
-    ccls = [e[1] for e in cfg.intra if e[0] == 1]
-
-    # ---- luma
-    bands, zgs, encs = [], [], []
-    for rank, log2 in enumerate(lcls):
-        idx = cls_idx.get((0, log2))
-        if idx is None or not idx.size:
-            continue
-        y = tm[idx, 2].astype(np.int64)
-        x = tm[idx, 1].astype(np.int64)
-        bands.append(y // ctb)
-        zgs.append(zg4[y >> 2, x >> 2])
-        encs.append(np.arange(idx.size, dtype=np.int64) * 4 + rank)
-    perm = np.full(NB * KL, -1, np.int32)
-    if bands:
-        b = np.concatenate(bands)
-        z = np.concatenate(zgs)
-        e = np.concatenate(encs)
-        o = np.lexsort((z, b))
-        b, e = b[o], e[o]
-        pos = _cumcount(b)
-        assert pos.max() < KL, (int(pos.max()), KL)
-        perm[b * KL + pos] = e
-    t["ispm_0"] = perm
-
-    # ---- chroma: pair Cb/Cr rows of each class by position
-    if ccls and KC:
-        bandsc, zgsc, encb, encr = [], [], [], []
-        bh_c = ctb // 2
-        for rank, log2 in enumerate(ccls):
-            idx = cls_idx.get((1, log2))
-            if idx is None or not idx.size:
-                continue
-            cidx = tm[idx, 0]
-            x = tm[idx, 1].astype(np.int64)
-            y = tm[idx, 2].astype(np.int64)
-            # pair Cb/Cr rows by position: sort by (x, y, cidx) so each
-            # pair is adjacent with Cb (cidx 1) first
-            o = np.lexsort((cidx, y, x))
-            rb, rr = o[0::2], o[1::2]
-            assert (cidx[rb] == 1).all() and (cidx[rr] == 2).all() \
-                and (x[rb] == x[rr]).all() and (y[rb] == y[rr]).all()
-            px, py = x[rb], y[rb]
-            bandsc.append(py // bh_c)
-            zgsc.append(zg4[(py * 2) >> 2, (px * 2) >> 2])
-            encb.append(rb * 4 + rank)
-            encr.append(rr * 4 + rank)
-        pb = np.full(NB * KC, -1, np.int32)
-        pr = np.full(NB * KC, -1, np.int32)
-        if bandsc:
-            b = np.concatenate(bandsc)
-            z = np.concatenate(zgsc)
-            eb = np.concatenate(encb)
-            er = np.concatenate(encr)
-            o = np.lexsort((z, b))
-            b, eb, er = b[o], eb[o], er[o]
-            pos = _cumcount(b)
-            assert pos.max() < KC, (int(pos.max()), KC)
-            pb[b * KC + pos] = eb
-            pr[b * KC + pos] = er
-        t["ispm_b"] = pb
-        t["ispm_r"] = pr
-    return t
-
-
 def pack_intra(plan, cfg):
     """Host: per-class flat level-sorted tensors for the device scan.
     Emits (into a dict) for each cfg.intra class (pl, log2, Ktot, Klvl, E):
@@ -369,7 +271,6 @@ def pack_intra(plan, cfg):
     tm, coeff_pool, _ = plan._tu_arrays
     levels = assign_levels_meta(plan)
     C = cfg.intra_C
-    cls_idx = {}
     for (pl, log2, Ktot, Klvl, E, kinds) in cfg.intra:
         n = 1 << log2
         nn = n * n
@@ -377,8 +278,7 @@ def pack_intra(plan, cfg):
         sel = ((levels > 0) & (tm[:, 3] == log2)
                & ((tm[:, 0] == 0) if pl == 0 else (tm[:, 0] > 0)))
         idx = np.flatnonzero(sel)
-        # availability in flatnonzero order: shares the memoized result
-        # with stream_cfg's hole probe (same batch), permuted below
+        # availability in flatnonzero order, permuted below
         ok0 = _border_ok(plan, tm[idx, 1], tm[idx, 2], tm[idx, 0],
                          log2) if idx.size else None
         lv = levels[idx]
@@ -386,7 +286,6 @@ def pack_intra(plan, cfg):
         idx = idx[order]
         lv = lv[order]
         k = idx.size
-        cls_idx[(pl, log2)] = idx
         assert k + Klvl <= Ktot, (pl, log2, k, Klvl, Ktot)
         cnt = np.bincount(lv, minlength=C + 1)
         assert lv.size == 0 or (int(lv.max()) <= C
@@ -444,15 +343,13 @@ def pack_intra(plan, cfg):
             ip = np.ones(Ktot, np.int8)
             ip[:k] = tm[idx, 0]
             t["ipl" + sfx] = ip
-    if getattr(cfg, "intra_scan", ()):
-        t.update(pack_scan_perms(plan, cfg, cls_idx))
     return t
 
 
 # ------------------------------------------------------------- device side
 def _residuals(t, cfg):
     """Batched per-class inverse transforms (level-independent, so ONE
-    MXU pass per class; transform.cc:352-625 capability incl. DST,
+    batched pass per class; transform.cc:352-625 capability incl. DST,
     transform-skip, tq-bypass, scaling lists)."""
     import jax.numpy as jnp
     from .ops.transform_jax import residual_batch
@@ -502,15 +399,10 @@ def _residuals(t, cfg):
 def intra_stage(Y, Cb, Cr, t, cfg):
     """Device: reconstruct all intra TUs in-program. Planes arrive with
     inter prediction + inter residuals + PCM applied; returns updated
-    (Y, Cb, Cr) int32. Dispatch: the Pallas band-scan kernel when
-    cfg.intra_scan is set (TPU, 8-bit), else the XLA wavefront-level
-    fori loop."""
+    (Y, Cb, Cr) int32: one lax.fori_loop over the wavefront levels."""
     import jax
     import jax.numpy as jnp
     from .ops.intra_jax import predict_core
-
-    if getattr(cfg, "intra_scan", ()):
-        return intra_stage_scan(Y, Cb, Cr, t, cfg)
 
     H, W = cfg.H, cfg.W
     Hc, Wc = cfg.chroma_dims
@@ -609,123 +501,4 @@ def intra_stage(Y, Cb, Cr, t, cfg):
     Y = yflat[:H * W].reshape(H, W).astype(jnp.int32)
     Cb = cflat[:Hc * Wc].reshape(Hc, Wc).astype(jnp.int32)
     Cr = cflat[Hc * Wc:2 * Hc * Wc].reshape(Hc, Wc).astype(jnp.int32)
-    return Y, Cb, Cr
-
-
-def intra_stage_scan(Y, Cb, Cr, t, cfg):
-    """Device: serial Pallas band scan (ops/pallas/intra_scan.py). The
-    whole CTB-row band stays VMEM-resident, so the per-level full-plane
-    copy the fori path pays disappears (~20x fewer HBM bytes/I-frame).
-    Kernel inputs are assembled on device from the SAME class tensors
-    the fori path uses, reordered by the host ispm_* permutations."""
-    import jax
-    import jax.numpy as jnp
-    from .ops.pallas.intra_scan import build_scan
-
-    interp = jax.default_backend() == "cpu"
-    res_all = _residuals(t, cfg)
-    ctb = 1 << cfg.log2ctb
-    KL, KC = cfg.intra_scan[:2]
-    span_only = len(cfg.intra_scan) > 2 and cfg.intra_scan[2]
-    bd = cfg.bitdepth
-
-    def run_group(pl, classes, K, BH, planes, perms):
-        log2s = tuple(e[1] for e in classes)
-        Ktots = [e[2] for e in classes]
-        nsqs = [1 << (2 * l) for l in log2s]
-        OBs = [_okbytes(l) for l in log2s]
-        RW = max(256, max(nsqs))
-        Hp0, Wp0 = planes[0].shape
-        C = -(-Wp0 // 128)
-        NB = -(-Hp0 // BH)
-        # class-row pools: avail unpacked + residuals lane-padded, both
-        # concatenated along rows. The slot reorder happens INSIDE the
-        # kernel via BlockSpec index maps driven by the rowg prefetch
-        # arrays — no XLA row gather (which cost ~320 ms/frame at 4K).
-        RWpool = []
-        avpool = []
-        for l, kt, ob in zip(log2s, Ktots, OBs):
-            nsq = 1 << (2 * l)
-            r = res_all[f"_{pl}_{l}"].reshape(kt, nsq)
-            if nsq < RW:
-                r = jnp.pad(r, ((0, 0), (0, RW - nsq)))
-            RWpool.append(r)
-            okb = t[f"iok_{pl}_{l}"]
-            bits = ((okb[:, :, None] >>
-                     (7 - jnp.arange(8, dtype=jnp.uint8))[None, None, :])
-                    & 1).astype(jnp.int32).reshape(kt, ob * 8)
-            avpool.append(jnp.pad(bits, ((0, 0), (0, 256 - ob * 8))))
-        respool = jnp.concatenate(RWpool)
-        avail = jnp.concatenate(avpool)
-        # availability spans (contiguous-run fast path; pack_span)
-        from .ops.pallas.intra_scan import pack_span, pack_rec
-        first = jnp.argmax(avail, axis=1)
-        last = 255 - jnp.argmax(avail[:, ::-1], axis=1)
-        total = avail.sum(axis=1)
-        anyok = total > 0
-        a_ = jnp.where(anyok, first, 0)
-        b_ = jnp.where(anyok, last + 1, 0)
-        hole = anyok & (total != b_ - a_)
-        span_rows = pack_span(a_, b_, anyok.astype(jnp.int32),
-                              hole.astype(jnp.int32))
-        xcat = jnp.concatenate(
-            [t[f"ixy_{pl}_{l}"][:, 0].astype(jnp.int32) for l in log2s])
-        ycat = jnp.concatenate(
-            [t[f"ixy_{pl}_{l}"][:, 1].astype(jnp.int32) for l in log2s])
-        mcat = jnp.concatenate(
-            [t[f"imd_{pl}_{l}"].astype(jnp.int32) for l in log2s])
-        base_rows = jnp.asarray(np.cumsum([0] + Ktots)[:-1], jnp.int32)
-        # filterFlag per (class rank, mode): spec 8.4.4.2.3 gating —
-        # matches intra_stage's predict_core(smooth=pl==0) behaviour
-        ftab = np.zeros((len(log2s), 35), np.int32)
-        if pl == 0:
-            md = np.minimum(abs(np.arange(35) - 26),
-                            abs(np.arange(35) - 10))
-            for ci, l in enumerate(log2s):
-                n = 1 << l
-                if n >= 8:
-                    ftab[ci] = (np.arange(35) != 1) & \
-                        (md > {8: 7, 16: 1, 32: 0}[n])
-        ftabj = jnp.asarray(ftab.reshape(-1))
-        # scalars from the first perm (Cb row geometry == Cr's)
-        p0 = perms[0]
-        valid = p0 >= 0
-        pc = jnp.maximum(p0, 0)
-        rank = pc & 3
-        row = pc >> 2
-        rowg = jnp.clip(base_rows[rank] + row, 0, xcat.shape[0] - 1)
-        x = xcat[rowg]
-        y = ycat[rowg]
-        mode = mcat[rowg]
-        scal = pack_rec(x, y % BH, rank, mode, valid.astype(jnp.int32),
-                        ftabj[rank * 35 + mode])
-        spans = span_rows[rowg]
-        rowgs = [rowg]
-        for pm in perms[1:]:
-            pmc = jnp.maximum(pm, 0)
-            rowgs.append(jnp.clip(base_rows[pmc & 3] + (pmc >> 2), 0,
-                                  xcat.shape[0] - 1))
-        # planes -> padded 3D bands
-        p3d = []
-        for P in planes:
-            Pp = jnp.pad(P, ((0, NB * BH - P.shape[0]),
-                             (0, C * 128 - P.shape[1])))
-            p3d.append(Pp.reshape(NB * BH, C, 128))
-        scan = build_scan(log2s, BH, C, NB, K, len(planes), bd,
-                          cfg.strong, pl == 0, RW, interpret=interp,
-                          span_only=span_only)
-        outs = scan(scal, spans, rowgs, avail, [respool] * len(planes),
-                    p3d)
-        if len(planes) == 1:
-            outs = (outs,)
-        return [o.reshape(NB * BH, C * 128)[:P.shape[0], :P.shape[1]]
-                for o, P in zip(outs, planes)]
-
-    lcls = [e for e in cfg.intra if e[0] == 0]
-    ccls = [e for e in cfg.intra if e[0] == 1]
-    if lcls:
-        Y = run_group(0, lcls, KL, ctb, [Y], [t["ispm_0"]])[0]
-    if ccls and KC:
-        Cb, Cr = run_group(1, ccls, KC, ctb // 2, [Cb, Cr],
-                           [t["ispm_b"], t["ispm_r"]])
     return Y, Cb, Cr

@@ -1,11 +1,11 @@
-"""Wavefront-level batching for intra prediction on TPU.
+"""Wavefront-level batching for intra prediction on the device.
 
 Intra TUs read reconstructed neighbor pixels, which serializes them in z-scan
 order. Instead of the reference's per-CTB sequential loop
 (slice.cc:4664-4830), the host computes a dependency *level* for every TU
 (longest chain of border dependencies); all TUs in one level are independent
 and run as one batched device step. Levels advance like the WPP wavefront but
-at TU granularity — the TPU analog of the reference's CTB-row wavefronts
+at TU granularity — the device analog of the reference's CTB-row wavefronts
 (SURVEY §2.4).
 
 Level assignment: maintain an int grid L over 4x4 blocks, initialized 0

@@ -6,7 +6,7 @@ Capability counterpart of /root/reference/libde265/motion.cc
 derive_combined_bipredictive_merging_candidates, fill_luma_motion_vector_
 predictors, motion_vectors_and_ref_indices, decode_prediction_unit).
 Runs in the serial front-end; produces fully-resolved PURecords that the
-TPU backend consumes as a flat batch.
+device backend consumes as a flat batch.
 """
 import numpy as np
 

@@ -1,1 +1,1 @@
-"""Compute ops: numpy reference implementations + Pallas TPU kernels."""
+"""Compute ops: numpy reference implementations + JAX device forms."""

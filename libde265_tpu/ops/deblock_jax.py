@@ -1,6 +1,6 @@
-"""Whole-frame vectorized deblocking on TPU (JAX/XLA), bit-exact.
+"""Whole-frame vectorized deblocking on the device (JAX/XLA), bit-exact.
 
-TPU-first split: the *host* derives per-edge-segment metadata (boundary
+Split: the *host* derives per-edge-segment metadata (boundary
 strength, per-side QP, filter-off masks) as dense tensors from the FramePlan
 grids — cheap numpy work that mirrors derive_edgeFlags/derive_boundaryStrength
 (/root/reference/libde265/deblock.cc:130-377). The *device* then runs the
@@ -91,8 +91,7 @@ def deblock_luma_pass(Y, bs, qp, beta_off, tc_off, p_off, q_off,
     Cj = samples at distance j from their window start (stride-8 static
     slices), all filter math runs elementwise on those, and the result
     interleaves back — no (n_s, 4, n_e, 8) segment shuffle and no full
-    4K transpose for the horizontal pass (both were the dominant cost of
-    the previous formulation on TPU)."""
+    4K transpose for the horizontal pass."""
     H, W = Y.shape
     n_s, n_e = bs.shape
     ax = 1 if vertical else 0          # axis the edge windows stride along

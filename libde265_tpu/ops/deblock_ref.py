@@ -2,7 +2,7 @@
 
 Capability counterpart of /root/reference/libde265/deblock.cc (edge marking,
 boundary-strength derivation, luma normal/strong + chroma filters, V then H
-two-pass structure). Operates whole-frame; the Pallas backend parallelizes the
+two-pass structure). Operates whole-frame; the device backend parallelizes the
 same math over CTB tiles.
 """
 import numpy as np

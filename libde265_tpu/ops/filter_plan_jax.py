@@ -43,8 +43,7 @@ def _bs_motion(pf_p, mv_p, poc_p, pf_q, mv_q, poc_q):
     nq_ = pf_q[..., 0] + pf_q[..., 1]
 
     # --- single prediction each side: compare the one active lane
-    # (2-entry lane select, NOT take_along_axis — that emits a serialized
-    # gather on TPU)
+    # (2-entry lane select, NOT take_along_axis — no gather)
     p_has0 = pf_p[..., 0] > 0
     q_has0 = pf_q[..., 0] > 0
     pocp1 = jnp.where(p_has0, poc_p[..., 0], poc_p[..., 1])
@@ -89,7 +88,7 @@ def _expand_edge_ctb(arr_ctb, si_luma_y, e_luma_x, log2ctb):
 def _expand_edge_ctb_fast(arr_ctb, n_s, n_e, log2ctb, edge_px):
     """xoff==0 fast path of _expand_edge_ctb: the edge/sample coordinates
     are uniform strides, so the CTB lookup is a broadcast-repeat + crop
-    (no gather — XLA serializes axis-1 gathers on TPU). Row r covers luma
+    (no gather). Row r covers luma
     y=4r; edge e covers luma x=edge_px*(e+1)."""
     ry = (1 << log2ctb) // 4
     rx = (1 << log2ctb) // edge_px
@@ -299,7 +298,7 @@ def plan_sao_device(grids, cfg, cidx, xoff=0):
     fast = isinstance(xoff, int) and xoff == 0
     if fast:
         # uniform CTB->sample expansion: broadcast-repeat + crop instead of
-        # per-column gathers (XLA serializes axis-1 gathers on TPU)
+        # per-column gathers
         def expand(a):
             return jnp.broadcast_to(
                 a[:, None, :, None], (nctby, ctbv, nctbx, ctb)) \
@@ -344,19 +343,3 @@ def plan_sao_device(grids, cfg, cidx, xoff=0):
         (~at_d[:, None]) | ok[3],
     ])
     return type_map, eo_map, band_map, off_maps, skip, avail
-
-
-def plan_sao_compact(grids, cfg, cidx, xoff=0):
-    """Fold plan_sao_device's per-sample maps into the three compact
-    int8 maps the pallas SAO kernel consumes (pallas/sao_filter.py):
-    mode (0 off / 1 band / 2 edge, with skip + availability + picture
-    boundary folded into 0), aux (band position or EO class), offs
-    (4, H, W). XLA fuses the folds into the map materialization."""
-    maps = plan_sao_device(grids, cfg, cidx, xoff)
-    t, eo, band, offs, skip, avail = maps
-    okh = avail[0] & avail[1]
-    okv = avail[2] & avail[3]
-    ok = jnp.where(eo == 0, okh, jnp.where(eo == 1, okv, okh & okv))
-    mode = jnp.where(skip | ((t == 2) & ~ok), 0, t).astype(jnp.int8)
-    aux = jnp.where(t == 1, band, eo).astype(jnp.int8)
-    return mode, aux, offs

@@ -1,6 +1,6 @@
 """Dense per-4x4-block motion compensation — one static-shape program.
 
-TPU-first redesign of the bucketed MC in inter_jax.py: instead of grouping
+Dense redesign of the bucketed MC in inter_jax.py: instead of grouping
 PUs by (w, h) (reference acceleration.h qpel[4][4] per-size kernels; each
 new bucket is a fresh XLA program), every 4x4 luma block of the frame is
 motion-compensated independently from the frame's 4x4 motion field

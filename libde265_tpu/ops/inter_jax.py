@@ -1,4 +1,4 @@
-"""Batched inter prediction (MC) on TPU — bit-exact (spec 8.5.3.3).
+"""Batched inter prediction (MC) on the device — bit-exact (spec 8.5.3.3).
 
 MC path hierarchy (consolidated round 2): mc_tile_jax.py is the
 PRODUCTION path (tile-table gather + folded-phase taps, used by the fused
@@ -7,7 +7,7 @@ hybrid device path's MC; THIS module supplies the shared tap tables and
 the per-(w,h)-bucket kernels kept for the acceleration_speed differential
 harness — it is not on the decode path.
 
-TPU-first design: PUs are bucketed by (w, h); each bucket is one batched
+Design: PUs are bucketed by (w, h); each bucket is one batched
 gather + two separable tap passes. Integer/fractional phases are unified by
 using impulse taps ([...64...]) for integer positions — algebraically
 identical to the spec's special cases, so ONE kernel covers all 16 qpel /

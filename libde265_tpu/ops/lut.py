@@ -1,14 +1,13 @@
-"""Gather-free small-table lookups for TPU.
+"""Gather-free small-table lookups.
 
-XLA lowers generic gathers (integer-array indexing) to a serialized
-per-element loop on TPU — pathologically slow on big index grids (the
-dominant cost found in the 4K frame-program profile). Every spec table
-in the decode path is tiny (<=64 entries: beta/tc tables 54, chroma-QP
-14, per-slice param rows), so an unrolled select chain — S fully
-vectorized VPU passes — replaces each gather with pure elementwise work.
+Every spec table in the decode path is tiny (<=64 entries: beta/tc
+tables 54, chroma-QP 14, per-slice param rows), so an unrolled select
+chain — S vectorized elementwise passes — replaces each gather over a
+big index grid with pure elementwise work that XLA fuses into the
+consumer.
 
 Reference counterpart: plain C array indexing (deblock.cc tc/beta table
-reads); the TPU redesign trades S broadcast selects for random access.
+reads).
 """
 import jax.numpy as jnp
 

@@ -1,24 +1,19 @@
-"""Class-masked MXU motion compensation: the tap passes as matmuls.
+"""Class-masked matmul motion compensation: the tap passes as matmuls.
 
-The VPU form of the two shifted-tap passes (mc_tile_jax._luma_pred_tile)
-costs ~9 ms/frame at 4K: 22 shifted int32 multiply-adds over (N,80/64)
-lanes that XLA cannot fuse into anything denser. But within one
-(fractional-phase, tile-misalignment) CLASS the shifted tap vector is a
-CONSTANT, so each pass is a per-row matmul with one of <=16 (luma) /
-<=32 (chroma) small banded matrices — MXU work.
+The elementwise form of the two shifted-tap passes
+(mc_tile_jax._luma_pred_tile) is 22 shifted int32 multiply-adds over
+(N,80/64) lanes. But within one (fractional-phase, tile-misalignment)
+CLASS the shifted tap vector is a CONSTANT, so each pass is a per-row
+matmul with one of <=16 (luma) / <=32 (chroma) small banded
+matrices.
 
 Rows are routed to their class matrix by MASKING, not sorting: one
 stacked matmul (N,K)@(K,J*n_cls) computes every populated class's
 result for every row, and a one-hot multiply-reduce keeps each row's
-own class (_class_pass). An earlier design counting-sorted rows into
-class-contiguous segments on device so each class ran one tight
-matmul; measured on v5e the sort's (N,32) f32 row scatter ALONE cost
-37 ms/4K-frame (TPU scatters serialize) vs <1 ms of redundant MXU
-FLOPs and one extra (N, J*n_cls) f32 round-trip for the masked form.
-Streams with a single populated class (constant-phase motion) skip
-the mask entirely; the stream-wide worst case (all 16/32 classes)
-bounds the overhead at a few ms — still an order of magnitude under
-the sort.
+own class (_class_pass), trading redundant matmul FLOPs and one extra
+(N, J*n_cls) f32 round-trip for the row scatter a class sort would
+need. Streams with a single populated class (constant-phase motion)
+skip the mask entirely.
 
 Pipeline (per prediction list):
   1. classes: hcls = (mvx&3)*4 + dx, vcls = (mvy&3)*4 + dy  (16 each

@@ -1,10 +1,8 @@
-"""Tile-table motion compensation — the fast TPU MC design.
+"""Tile-table motion compensation.
 
-The round-1 dense MC gathered an 11x11 window per 4x4 block with
-per-element fancy indices; XLA serializes that gather (~0.44 fps for 4K
-luma MC alone). Probed replacement (tools/probe_mc_gather.py): gather ONE
-contiguous row of 256 from a precomputed overlap-tile table (45 GB/s on
-the v5e vs ~0.2 GB/s for the window gather), then apply the 8-tap
+Instead of gathering an 11x11 window per 4x4 block with per-element
+indices (ops/inter_dense_jax.py), gather ONE contiguous row of 256 from
+a precomputed overlap-tile table, then apply the 8-tap
 interpolation (reference kernels acceleration.h qpel[4][4]/epel,
 motion.cc:49-278) as two batched matmuls whose matrices fold together the
 fractional phase AND the window's misalignment within its tile.
@@ -31,24 +29,17 @@ from .inter_jax import QPEL_TAPS, EPEL_TAPS
 
 PAD_Y = 16
 PAD_C = 8
-ROWPAD = 8      # tile rows per slot pad to a multiple of the pallas
-                # builder's band-group size: the kernel then writes its
-                # output layout directly (no post-kernel slice copy of
-                # the ~134 MB 4K table, measured ~2 ms/frame)
 
 
 def n_tiles_y(H, W):
-    """Luma tile-table grid for an (H, W) plane: (padded row count,
-    column count). Rows beyond (H+20)//4 exist only for layout and are
-    never gathered (window clamping keeps ty < (H+20)//4)."""
-    nty = (H + 20) // 4
-    return -(-nty // ROWPAD) * ROWPAD, (W + 20) // 4
+    """Luma tile-table grid for an (H, W) plane: (row count, column
+    count). Window clamping keeps every gathered row index below it."""
+    return (H + 20) // 4, (W + 20) // 4
 
 
 def n_tiles_c(Hc, Wc):
-    """Chroma tile-table grid for an (Hc, Wc) plane (padded rows)."""
-    nty = (Hc + 12) // 4
-    return -(-nty // ROWPAD) * ROWPAD, (Wc + 12) // 4
+    """Chroma tile-table grid for an (Hc, Wc) plane."""
+    return (Hc + 12) // 4, (Wc + 12) // 4
 
 
 def _mk_shift_tables():
@@ -83,16 +74,13 @@ def pad_plane(p, pad):
 
 
 def build_tile_table_y(padded, out_dtype=jnp.int16):
-    """padded: (R, H+32, W+32) -> (R*nty_p*ntx, 256) stride-4 16x16
+    """padded: (R, H+32, W+32) -> (R*nty*ntx, 256) stride-4 16x16
     tiles, element [c*16 + r] = tile[row r, col c] (column-major within the
-    tile — the layout the pallas builder emits without any transposes).
-    (nty_p, ntx) = n_tiles_y(H, W); the ROWPAD-padding rows hold zeros
-    (pallas emits garbage there — never gathered either way). out_dtype
-    uint8 for 8-bit streams halves the table (the decode path's dominant
-    HBM tenant)."""
+    tile). (nty, ntx) = n_tiles_y(H, W). out_dtype uint8 for 8-bit
+    streams halves the table (the decode path's largest device
+    tenant)."""
     R, Hp, Wp = padded.shape
     nty, ntx = (Hp - 12) // 4, (Wp - 12) // 4
-    nty_p = -(-nty // ROWPAD) * ROWPAD
     padded = padded.astype(out_dtype)
     rows = jnp.concatenate(
         [padded[:, 4 * s:4 * s + 4 * nty, :].reshape(R, nty, 4, Wp)
@@ -101,16 +89,14 @@ def build_tile_table_y(padded, out_dtype=jnp.int16):
         [rows[:, :, :, 4 * s:4 * s + 4 * ntx].reshape(R, nty, 16, ntx, 4)
          for s in range(4)], axis=4)                        # (R,nty,16r,ntx,16c)
     t5 = tiles.transpose(0, 1, 3, 4, 2)                     # (R,nty,ntx,c,r)
-    t5 = jnp.pad(t5, ((0, 0), (0, nty_p - nty), (0, 0), (0, 0), (0, 0)))
-    return t5.reshape(R * nty_p * ntx, 256)
+    return t5.reshape(R * nty * ntx, 256)
 
 
 def build_tile_table_c(padded, out_dtype=jnp.int16):
-    """padded: (R, Hc+16, Wc+16) -> (R*nty_p*ntx, 64) stride-4 8x8 tiles,
-    element [c*8 + r]. (nty_p, ntx) = n_tiles_c(Hc, Wc)."""
+    """padded: (R, Hc+16, Wc+16) -> (R*nty*ntx, 64) stride-4 8x8 tiles,
+    element [c*8 + r]. (nty, ntx) = n_tiles_c(Hc, Wc)."""
     R, Hp, Wp = padded.shape
     nty, ntx = (Hp - 4) // 4, (Wp - 4) // 4
-    nty_p = -(-nty // ROWPAD) * ROWPAD
     padded = padded.astype(out_dtype)
     rows = jnp.concatenate(
         [padded[:, 4 * s:4 * s + 4 * nty, :].reshape(R, nty, 4, Wp)
@@ -119,8 +105,7 @@ def build_tile_table_c(padded, out_dtype=jnp.int16):
         [rows[:, :, :, 4 * s:4 * s + 4 * ntx].reshape(R, nty, 8, ntx, 4)
          for s in range(2)], axis=4)                        # (R,nty,8r,ntx,8c)
     t5 = tiles.transpose(0, 1, 3, 4, 2)                     # (R,nty,ntx,c,r)
-    t5 = jnp.pad(t5, ((0, 0), (0, nty_p - nty), (0, 0), (0, 0), (0, 0)))
-    return t5.reshape(R * nty_p * ntx, 64)
+    return t5.reshape(R * nty * ntx, 64)
 
 
 def _pad_refs(refs_y, refs_cb, refs_cr):
@@ -133,56 +118,27 @@ def _pad_refs(refs_y, refs_cb, refs_cr):
     return py, pcb, pcr
 
 
-def build_tables(refs_y, refs_cb, refs_cr, use_pallas=False, bitdepth=8):
+def build_tables(refs_y, refs_cb, refs_cr, bitdepth=8):
     """refs_*: (R,H,W)/(R,Hc,Wc) integer stacks -> (ty, tc2) tile tables
     (device), uint8 for 8-bit streams / int16 otherwise. tc2 interleaves
     both chroma planes per row ([Cb 64 | Cr 64]): chroma MC gathers BOTH
-    planes' windows with ONE 128-byte-row gather (identical geometry).
-    use_pallas selects the Mosaic builder (TPU)."""
+    planes' windows with ONE 128-byte-row gather (identical geometry)."""
     dt = jnp.uint8 if bitdepth <= 8 else jnp.int16
     py, pcb, pcr = _pad_refs(refs_y, refs_cb, refs_cr)
-    if use_pallas:
-        from .pallas.mc_tables import build_tile_table_pallas
-        ty = build_tile_table_pallas(py, 16, out_dtype=dt)
-        tcb = build_tile_table_pallas(pcb, 8, out_dtype=dt)
-        tcr = build_tile_table_pallas(pcr, 8, out_dtype=dt)
-    else:
-        ty = build_tile_table_y(py, dt)
-        tcb = build_tile_table_c(pcb, dt)
-        tcr = build_tile_table_c(pcr, dt)
+    ty = build_tile_table_y(py, dt)
+    tcb = build_tile_table_c(pcb, dt)
+    tcr = build_tile_table_c(pcr, dt)
     return ty, jnp.concatenate([tcb, tcr], axis=1)
 
 
-def _pallas_interp():
-    """Mosaic on real TPU; interpreter on the CPU test backend."""
-    import jax
-    return jax.default_backend() != "tpu"
-
-
-def _taps32(th, tv, U, npad):
-    """Pack per-block tap vectors into the (N,32) int8 kernel input:
-    th in lanes [0,U), tv in lanes [16,16+U)."""
-    n = th.shape[0]
-    z = jnp.zeros((n, 16 - U), jnp.int8)
-    tap = jnp.concatenate([th.astype(jnp.int8), z,
-                           tv.astype(jnp.int8), z], axis=1)
-    if npad != n:
-        tap = jnp.concatenate(
-            [tap, jnp.zeros((npad - n, 32), jnp.int8)], axis=0)
-    return tap
-
-
-def _luma_pred_tile(table_y, nty, ntx, bx, by, mvx, mvy, slot, H, W, shift1,
-                    use_pallas=False):
+def _luma_pred_tile(table_y, nty, ntx, bx, by, mvx, mvy, slot, H, W, shift1):
     """One list's luma prediction for all N 4x4 blocks: (N,4,4) int32
     (14-bit intermediate scale).
 
     The filter works on the FLAT (N,256) gathered rows with static
     128/64-lane slices: row element c*16+r, so win[:, 16u:16u+128] puts
-    win[(u+j)*16+r] at lane j*16+r — both tap passes become aligned VPU
-    multiply-adds with zero relayout (the earlier (N,16,16) middle-axis
-    slicing forced per-term lane shuffles and was ~3x slower on TPU).
-    use_pallas runs both passes in one VMEM kernel (pallas/mc_filter.py)."""
+    win[(u+j)*16+r] at lane j*16+r — both tap passes become aligned
+    elementwise multiply-adds with zero relayout."""
     x0 = jnp.clip(bx + (mvx >> 2) - 3, -14, W + 1)
     y0 = jnp.clip(by + (mvy >> 2) - 3, -14, H + 1)
     tx = (x0 + 16) >> 2
@@ -193,25 +149,10 @@ def _luma_pred_tile(table_y, nty, ntx, bx, by, mvx, mvy, slot, H, W, shift1,
     from .lut import take_rows_small
     th = take_rows_small(TH_Y, (mvx & 3) * 4 + dx)          # (N,11)
     tv = take_rows_small(TH_Y, (mvy & 3) * 4 + dy)          # (N,11)
-    if use_pallas:
-        from .pallas.mc_filter import mc_taps_pallas, BLK
-        n = idx.shape[0]
-        npad = -(-n // BLK) * BLK
-        if npad != n:
-            idx = jnp.concatenate(
-                [idx, jnp.zeros(npad - n, idx.dtype)])
-        win = table_y[idx]                      # (Npad, 256)
-        out = mc_taps_pallas(win, _taps32(th, tv, 11, npad),
-                             16, 11, 80, 64, shift1,
-                             interpret=_pallas_interp())[:n]
-        return out.reshape(-1, 4, 16)[:, :, :4].transpose(0, 2, 1)
     win = table_y[idx]                          # (N, 256) i16, [c*16+r]
     # horizontal: lane j*16+r of tmp = sum_u win[(u+j)*16+r] * th[u]
     # (80 lanes: the vertical pass reads tmp lanes up to 10+63=73, and
     # 16*10+79=239 keeps every u-slice inside the 256-wide row)
-    # (int32 VPU math measured fastest on v5e: an f32-FMA variant cost
-    # MORE — the int16->f32 relayout dominates — and the pallas kernel
-    # fed by an external gather was 1.7x slower end to end)
     tmp = sum(win[:, 16 * u:16 * u + 80].astype(jnp.int32) * th[:, u, None]
               for u in range(11)) >> shift1               # (N,80)
     # vertical: lane j*16+i of out = sum_u tmp[j*16+(i+u)] * tv[u]
@@ -223,7 +164,7 @@ def _luma_pred_tile(table_y, nty, ntx, bx, by, mvx, mvy, slot, H, W, shift1,
 
 
 def _chroma_pred_tile(table_c, nty, ntx, bx, by, mvx, mvy, slot, Hc, Wc,
-                      shift1, use_pallas=False):
+                      shift1):
     """One list's chroma prediction for all N 2x2 blocks: (N,2,2) int32."""
     x0 = jnp.clip((bx >> 1) + (mvx >> 3) - 1, -7, Wc + 1)
     y0 = jnp.clip((by >> 1) + (mvy >> 3) - 1, -7, Hc + 1)
@@ -235,18 +176,6 @@ def _chroma_pred_tile(table_c, nty, ntx, bx, by, mvx, mvy, slot, Hc, Wc,
     from .lut import take_rows_small
     th = take_rows_small(TH_C, (mvx & 7) * 4 + dx)          # (N,7)
     tv = take_rows_small(TH_C, (mvy & 7) * 4 + dy)
-    if use_pallas:
-        from .pallas.mc_filter import mc_taps_pallas, BLK
-        n = idx.shape[0]
-        npad = -(-n // BLK) * BLK
-        if npad != n:
-            idx = jnp.concatenate(
-                [idx, jnp.zeros(npad - n, idx.dtype)])
-        win = table_c[idx]                      # (Npad, 64)
-        out = mc_taps_pallas(win, _taps32(th, tv, 7, npad),
-                             8, 7, 16, 16, shift1,
-                             interpret=_pallas_interp())[:n]
-        return jnp.stack([out[:, 0:2], out[:, 8:10]], axis=2)
     win = table_c[idx]                          # (N, 64) i16, [c*8+r]
     # flat-lane taps (see _luma_pred_tile): lane j*8+r, j<2 needed
     tmp = sum(win[:, 8 * u:8 * u + 16].astype(jnp.int32) * th[:, u, None]
@@ -261,7 +190,7 @@ def _chroma_pred_tile(table_c, nty, ntx, bx, by, mvx, mvy, slot, Hc, Wc,
 
 
 def mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth=8,
-                  strip=None, x0=0, bi=True, use_pallas=False,
+                  strip=None, x0=0, bi=True,
                   mc_caps=None, mc_caps_c=None, luma_only=False,
                   weighted=True):
     """Motion-compensate every 4x4 block of a frame from tile tables.
@@ -300,9 +229,9 @@ def mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth=8,
     mvx0, mvy0, s0 = lane(0)
     mvx1, mvy1, s1 = lane(1)
     if mc_caps:
-        # class-sorted MXU tap passes (ops/mc_mxu_jax.py): ~5.7x faster
-        # than the VPU lane slices on v5e; needs static per-class
-        # capacities from the stream's plan analysis (full-frame only)
+        # class-masked matmul tap passes (ops/mc_mxu_jax.py); needs
+        # static per-class capacities from the stream's plan analysis
+        # (full-frame only)
         from .mc_mxu_jax import mc_luma_mxu
         y0p = mc_luma_mxu(table_y, nty, ntx, bx, by, mvx0, mvy0, s0, H, W,
                           shift1, mc_caps, bitdepth)
@@ -310,14 +239,12 @@ def mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth=8,
                           shift1, mc_caps, bitdepth) if bi else None
     else:
         y0p = _luma_pred_tile(table_y, nty, ntx, bx, by, mvx0, mvy0, s0,
-                              H, W, shift1, use_pallas)
+                              H, W, shift1)
         y1p = _luma_pred_tile(table_y, nty, ntx, bx, by, mvx1, mvy1, s1,
-                              H, W, shift1, use_pallas) if bi else None
+                              H, W, shift1) if bi else None
     # ---- plane-space combine: per-block tensors relayout to raster
-    # planes BEFORE the uni/bi/weighted math. Elementwise ops on
-    # (N,4,4)/(N,2,2) run at <13% VPU lane occupancy (minor dims 4/2 of
-    # the 128-lane tile); on (H,W) they run full — measured several
-    # ms/4K frame.
+    # planes BEFORE the uni/bi/weighted math, so the elementwise ops run
+    # on wide (H,W) planes instead of minor dims of 4/2.
     def to_plane(p, s):
         return p.reshape(n_by, n_bx, s, s).transpose(0, 2, 1, 3) \
                 .reshape(n_by * s, n_bx * s)
@@ -360,7 +287,7 @@ def mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth=8,
         z = jnp.zeros((Hc, Wo // 2), jnp.int32)
         return planes + [z, z]
     if mc_caps_c:
-        # one class-sorted MXU pipeline yields BOTH planes per lane,
+        # one class-masked matmul pipeline yields BOTH planes per lane,
         # gathering the interleaved Cb|Cr rows once
         from .mc_mxu_jax import mc_chroma_mxu
         cb0, cr0 = mc_chroma_mxu(table_c2, ntyc, ntxc, bx, by,
@@ -375,9 +302,9 @@ def mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth=8,
         return planes
     for ci, tab in ((1, table_cb), (2, table_cr)):
         c0 = _chroma_pred_tile(tab, ntyc, ntxc, bx, by, mvx0, mvy0, s0,
-                               Hc, Wc, shift1, use_pallas)
+                               Hc, Wc, shift1)
         c1 = _chroma_pred_tile(tab, ntyc, ntxc, bx, by, mvx1, mvy1, s1,
-                               Hc, Wc, shift1, use_pallas) if bi else None
+                               Hc, Wc, shift1) if bi else None
         planes.append(combine_plane(c0, c1, 2, ci))
     return planes
 
@@ -467,16 +394,21 @@ def mc_chroma_dense(refs_cb, refs_cr, mv, slot, pf, wts, ex, H, W,
     return out[0], out[1]
 
 
-@partial(jax.jit, static_argnames=("dims", "bitdepth"))
+@partial(jax.jit, static_argnames=("dims", "bitdepth", "mc_caps",
+                                   "mc_caps_c"))
 def _mc_standalone(refs_y, refs_cb, refs_cr, mv, slot, pf, wts, ex,
-                   dims, bitdepth):
+                   dims, bitdepth, mc_caps=None, mc_caps_c=None):
     tables = build_tables(refs_y, refs_cb, refs_cr, bitdepth=bitdepth)
-    return mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth)
+    return mc_frame_tile(tables, dims, mv, slot, pf, wts, ex, bitdepth,
+                         mc_caps=mc_caps, mc_caps_c=mc_caps_c)
 
 
-def motion_compensate_frame_tile(plan, planes, dpb, bitdepth=8):
+def motion_compensate_frame_tile(plan, planes, dpb, bitdepth=8,
+                                 mc_caps=None, mc_caps_c=None):
     """Drop-in replacement for inter_dense_jax.motion_compensate_frame_dense
-    using the tile-table path. planes modified in place."""
+    using the tile-table path (4:2:0); mc_caps / mc_caps_c select the
+    class-masked matmul MC (ProgramCfg's capacities). planes modified in
+    place."""
     from .inter_dense_jax import build_block_arrays, REF_STACK
     if not plan.pus:
         return
@@ -495,7 +427,8 @@ def motion_compensate_frame_tile(plan, planes, dpb, bitdepth=8):
     outs = _mc_standalone(stacks[0], stacks[1], stacks[2],
                           jnp.asarray(mv), jnp.asarray(slot), jnp.asarray(pf),
                           jnp.asarray(wts), jnp.asarray(ex),
-                          (plan.H, plan.W), bitdepth)
+                          (plan.H, plan.W), bitdepth, mc_caps or None,
+                          mc_caps_c or None)
     n_by, n_bx = plan.H // 4, plan.W // 4
     m_y = np.kron(inter.reshape(n_by, n_bx), np.ones((4, 4), bool))
     m_c = np.kron(inter.reshape(n_by, n_bx), np.ones((2, 2), bool))

@@ -1,6 +1,6 @@
-"""Whole-frame vectorized SAO on TPU (JAX/XLA), bit-exact (spec 8.7.3).
+"""Whole-frame vectorized SAO (JAX/XLA), bit-exact (spec 8.7.3).
 
-TPU-first design: instead of per-CTB tasks with row sync
+Design: instead of per-CTB tasks with row sync
 (/root/reference/libde265/sao.cc:396-518), the per-CTB parameters are
 broadcast to per-sample dense maps on the host, and the device applies band
 and edge offsets to the whole frame at once, out-of-place (the reference also

@@ -1,11 +1,9 @@
-"""Batched dequant + inverse transform on TPU (JAX/XLA), bit-exact integer.
+"""Batched dequant + inverse transform (JAX/XLA), bit-exact integer.
 
-TPU-first design: TUs are bucketed by size class (4/8/16/32 — exactly the
-size classes of the reference's acceleration table, acceleration.h:29-201) and
-processed as (N, n, n) int32 batches. The 1-D transforms are integer matmuls;
-for MXU efficiency the int16 operand is split into int8 hi/lo parts so the
-products ride the MXU's int8 path exactly (exact int32 accumulation), with an
-XLA-int32 fallback used at small batch sizes.
+TUs are bucketed by size class (4/8/16/32 — exactly the size classes of the
+reference's acceleration table, acceleration.h:29-201) and processed as
+(N, n, n) int32 batches. The 1-D transforms are int32 x int32 matmuls with
+int32 accumulation (exact).
 
 All rounding/shift semantics follow spec 8.6.3/8.6.4 exactly (same math as
 ops/transform_ref.py, which is the differential-test oracle).

@@ -1,5 +1,5 @@
 """Scalar/numpy reference implementations of dequantization and inverse
-transforms (spec 8.6.2-8.6.5). These are the bit-exact oracles for the Pallas
+transforms (spec 8.6.2-8.6.5). These are the bit-exact oracles for the device
 kernels (mirroring the role of /root/reference/libde265/fallback-dct.cc for the
 SIMD kernels) and the CPU fallback path of the decoder.
 

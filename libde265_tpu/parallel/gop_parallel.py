@@ -1,16 +1,16 @@
 """GOP-level parallel decode: split an Annex-B stream at IRAP boundaries and
 decode the segments concurrently.
 
-This is the multi-host scaling axis from SURVEY §5: random-access points
+This is the scaling axis from SURVEY §5: random-access points
 (IDR/BLA/CRA) are natural checkpoint/shard boundaries — each GOP is fully
 self-contained (the reference leaves frame-level parallelism as a TODO,
-decctx.cc:904-910). Workers are processes here (one per host/chip in a pod
-deployment); frames/s scaling is measured by tools/bench_gop.py.
+decctx.cc:904-910). backend "device" shards GOPs over a device mesh;
+backend "numpy" decodes them in host worker processes (tools/bench_gop.py).
 """
 import multiprocessing as mp
 import os
 
-from ..bitstream.nal import split_annexb, is_idr, is_bla, is_cra, is_vcl
+from ..bitstream.nal import is_idr, is_bla, is_cra, is_vcl
 
 
 def split_gops(stream: bytes):
@@ -62,20 +62,18 @@ def decode_gop_parallel(stream: bytes, workers: int = None,
     """Decode GOPs concurrently; returns (poc, yuv_bytes) frames in
     presentation order per GOP.
 
-    backend "device" (the DEFAULT when an accelerator mesh is live):
-    one native front-end parse + the GOP-sharded fused device program,
-    one GOP per mesh device, zero collectives (parallel/gop_shard.py) —
-    the TPU-native composition of the reference's frame-parallel TODO
-    (decctx.cc:904-910). backend "numpy": multiprocessing workers each
-    decoding a GOP segment on the host (the multi-host stand-in)."""
+    backend "device" (the default when JAX has an accelerator): one
+    native front-end parse + the GOP-sharded fused device program, one GOP
+    per mesh device, zero collectives (parallel/gop_shard.py); its errors
+    propagate. backend "numpy": multiprocessing workers each decoding a
+    GOP segment on the host."""
     if backend is None:
         import jax
         backend = "device" if jax.default_backend() != "cpu" else "numpy"
     if backend == "device":
-        try:
-            return decode_gop_device(stream)
-        except (AssertionError, ValueError):
-            pass          # incompatible stream: fall through to workers
+        return decode_gop_device(stream)
+    if backend != "numpy":
+        raise ValueError(f"unknown backend {backend!r}")
     gops = split_gops(stream)
     if len(gops) <= 1:
         return _decode_gop((0, gops[0] if gops else stream, native))[1]
@@ -96,20 +94,10 @@ def decode_gop_device(stream: bytes, mesh=None):
     import numpy as np
     import jax
     from jax.sharding import Mesh
-    from ..native_frontend import NativeFrontend
-    from ..bitstream.paramsets import read_sps, read_pps
+    from ..api import parse_stream_native
     from .gop_shard import decode_gops_sharded, split_gop_plans
 
-    spss, ppss = {}, {}
-    for u in split_annexb(stream):
-        t = u.header.nal_unit_type
-        if t == 33:
-            s = read_sps(u.data)
-            spss[s.seq_parameter_set_id] = s
-        elif t == 34:
-            p = read_pps(u.data, spss)
-            ppss[p.pic_parameter_set_id] = p
-    plans = NativeFrontend().parse(stream, spss, ppss)
+    plans = parse_stream_native(stream)
     sps = plans[0].sps
     all_gops = split_gop_plans(plans)
     if mesh is None:

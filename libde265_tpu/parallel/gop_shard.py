@@ -8,9 +8,9 @@ data parallelism over a `jax.sharding.Mesh`: every device runs the same
 fused frame program on its own GOP — IDR through the intra wavefront
 variant, then a lax.scan over the P frames — with its own private DPB /
 tile-table carry. No cross-device communication exists inside the
-program, so frames/s scaling is communication-free by construction; on a
-pod the GOP axis rides hosts (DCN moves only the input bits and output
-frames, never reference pixels).
+program, so frames/s scaling is communication-free by construction: only
+the input bits and output frames cross the interconnect, never reference
+pixels.
 
 Bit-exactness: tests/test_gop_shard.py decodes gop1080p on a virtual CPU
 mesh and checks every frame's MD5 against the dec265 goldens.
@@ -124,14 +124,13 @@ def get_gop_program(cfg, mesh, emit_frames=False):
     return jax.jit(fn, donate_argnums=(0, 1, 2, 3, 4))
 
 
-def _shard_args(plans, sps, mesh, use_pallas=False, emit_frames=False):
+def _shard_args(plans, sps, mesh, emit_frames=False):
     from ..frame_program import stream_cfg
     G = mesh.shape["g"]
     gops = split_gop_plans(plans)
     assert len(gops) >= G, (len(gops), G)
     gops = gops[:G]
-    cfg = stream_cfg([p for g in gops for p in g], sps,
-                     use_pallas=use_pallas)
+    cfg = stream_cfg([p for g in gops for p in g], sps)
     cfg_i = replace(cfg, skip_mc=True)
     cfg_p = replace(cfg, intra=(), intra_C=0)
     ti, islots, ts, oslots, F = pack_gops(gops, cfg_i, cfg_p)
@@ -151,21 +150,20 @@ def _shard_args(plans, sps, mesh, use_pallas=False, emit_frames=False):
     return prog, args, gops
 
 
-def lower_sharded_for_census(plans, sps, mesh, use_pallas=False):
+def lower_sharded_for_census(plans, sps, mesh):
     """Lower (without running) the GOP-sharded program: the bench counts
     collective ops in the HLO — the zero-collective scaling claim is
     CHECKED, not asserted (tools/bench_gop_device.py)."""
-    prog, args, _ = _shard_args(plans, sps, mesh, use_pallas)
+    prog, args, _ = _shard_args(plans, sps, mesh)
     return prog.lower(*args)
 
 
-def decode_gops_sharded(plans, sps, mesh, use_pallas=False,
-                        emit_frames=False):
+def decode_gops_sharded(plans, sps, mesh, emit_frames=False):
     """Decode a closed-GOP stream with one GOP per mesh device. Returns
     {frame_id: (slot, gop_idx)} plus the final device stacks (G, R, H, W)
     for MD5 verification/download; with emit_frames, out[5:8] carry
     every decoded frame's planes (G, F, H, W) in per-GOP decode order."""
-    prog, args, gops = _shard_args(plans, sps, mesh, use_pallas,
+    prog, args, gops = _shard_args(plans, sps, mesh,
                                    emit_frames=emit_frames)
     out = prog(*args)
     # frame -> (gop, slot) map for verification (last write per slot)

@@ -195,8 +195,7 @@ def decode_frame_tiles_local(dy, dcb, dcr, t, x0a, out_slot, cfg, ndev,
     wd = x0a[0, 1]
 
     sel = t["sel_slots"]
-    tables = build_tables(dy[sel], dcb[sel], dcr[sel],
-                          use_pallas=cfg.use_pallas, bitdepth=cfg.bitdepth)
+    tables = build_tables(dy[sel], dcb[sel], dcr[sel], bitdepth=cfg.bitdepth)
 
     # ---- MC block arrays from the halo'd grids' center
     c = slice(GB, GB + ws4)
@@ -230,7 +229,7 @@ def decode_frame_tiles_local(dy, dcb, dcr, t, x0a, out_slot, cfg, ndev,
         ex = jnp.zeros((N,), bool)
 
     mcp = mc_frame_tile(tables, (H, W), mv, slot, pf, wts, ex, bd,
-                        strip=Ws, x0=x0, use_pallas=cfg.pallas_taps)
+                        strip=Ws, x0=x0)
     inter_m = t["pm"][:, c].astype(jnp.int32) == 0
     Y = jnp.where(_expand_mask_strip(inter_m, 4, H, Ws), mcp[0], 0)
     Cb = jnp.where(_expand_mask_strip(inter_m, 2, Hc, Wsc), mcp[1], 0)

@@ -3,7 +3,7 @@
 This is the device-friendly mirror of the reference's per-picture metadata
 (`MetaDataArray` grids, /root/reference/libde265/image.h:85-157,221-857) and of
 the per-worker coefficient buffers (decctx.h:82-89): the serial bitstream
-front-end fills these structure-of-arrays plans; the TPU back-end consumes them
+front-end fills these structure-of-arrays plans; the device back-end consumes them
 as batched tensors.
 
 Granularities:

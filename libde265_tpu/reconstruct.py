@@ -2,7 +2,7 @@
 add, inter MC hookup, deblocking and SAO.
 
 This is the *reference backend* (numpy, bit-exact, serial TU replay in z-scan
-order). The TPU backend (ops/pallas) consumes the same FramePlan but batches
+order). The device backend consumes the same FramePlan but batches
 TUs into wavefront levels; this module doubles as its differential-test oracle,
 replicating the role of the scalar fallback kernels in the reference
 (/root/reference/libde265/fallback*.cc).

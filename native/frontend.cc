@@ -1,6 +1,6 @@
 // libde265_tpu native front-end: serial HEVC Main-profile bitstream decoding
 // (NAL / headers / CABAC / CTU syntax / motion derivation) producing batched
-// decode-plan arrays for the TPU back-end.
+// decode-plan arrays for the device back-end.
 //
 // This is the C++ counterpart of libde265_tpu/bitstream/*.py + motion.py —
 // same algorithms (spec 7.3/8.5/9.3), same plan layout; the Python front-end
@@ -3096,8 +3096,8 @@ extern "C" {
 // ====================== native plan packing ===============================
 // fe_pack_setup / fe_pack_frame: fill the fused frame program's per-dtype
 // blob buffers (frame_program.pack_frame + pack_blob layout) DIRECTLY from
-// the C++ Frame state — the Python/numpy pack was the pipeline wall at 4K
-// (~30 ms/frame vs the chip's ~30 fps; VERDICT r3 item 1). The Python
+// the C++ Frame state — the Python/numpy pack was the host pipeline's
+// wall at 4K. The Python
 // layout (blob_meta) is passed in as a key table; every writer below is a
 // byte-exact mirror of its numpy counterpart (differential test:
 // tests/test_native_pack.py compares whole blobs). Python keeps packing

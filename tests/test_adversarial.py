@@ -1,5 +1,5 @@
 """Adversarial encoder-knob cross-product vectors (manifest_adv.json,
-tools/gen_adversarial_streams.py — VERDICT r3 item 10): feature
+tools/gen_adversarial_streams.py): feature
 COMBINATIONS the per-feature goldens never exercise together (WPP x
 dependent slices x 10-bit x scaling lists, tiles x lossless x qp-delta,
 B x weighted x long-term refs, rext formats x tiles/tskip/SDH). Each

@@ -38,7 +38,7 @@ def test_big_stream_native(name):
 @pytest.mark.slow
 def test_mixedmv_device_general_sort_path():
     """720p stream whose per-CU qpel MVs cover every (phase, alignment)
-    class: the class-sorted MXU MC takes the full two-sort general path
+    class: the class-masked matmul MC takes the full general path
     inside the fused device program; must be bit-exact vs dec265."""
     from libde265_tpu.api import decode_stream_native
     m, data = _case("mixedmv_720p")

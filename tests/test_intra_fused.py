@@ -69,7 +69,7 @@ def test_intra_frames_run_fused(mf, name):
         got = [hashlib.md5(pl.tobytes()).hexdigest() for pl in planes]
         want = [m["md5"][i][k] for k in ("y", "u", "v")]
         assert got == want, f"{name} frame {i} (poc {p.poc})"
-        if dec.frames[p.frame_id]["fast"] and frame_has_intra(p):
+        if dec.frames[p.frame_id]["route"] == "fused" and frame_has_intra(p):
             n_fused_intra += 1
     n_eligible = sum(1 for p in plans
                      if frame_compatible(p) and frame_has_intra(p))
@@ -100,7 +100,7 @@ def test_intra_caps_cover_every_frame():
                                   "p_pcm_nolf", "p_scaling", "p_qpdelta",
                                   "i_tskip_nxn", "p_sdh"])
 def test_exclusion_streams_run_fused(name):
-    """VERDICT r2 item 6: transform-skip, tq-bypass, PCM and scaling-list
+    """Transform-skip, tq-bypass, PCM and scaling-list
     frames must run the fused device program (no frame_compatible
     exclusion left), bit-exact vs dec265."""
     from libde265_tpu.device_stream import DeviceStreamDecoder
@@ -121,7 +121,7 @@ def test_exclusion_streams_run_fused(name):
         got = [hashlib.md5(pl.tobytes()).hexdigest() for pl in planes]
         want = [m["md5"][i][k] for k in ("y", "u", "v")]
         assert got == want, f"{name} frame {i} (poc {p.poc})"
-        n_fast += bool(dec.frames[p.frame_id]["fast"])
+        n_fast += bool(dec.frames[p.frame_id]["route"] == "fused")
     assert n_fast == len(plans), \
         f"{name}: only {n_fast}/{len(plans)} frames took the fused path"
 
@@ -129,10 +129,9 @@ def test_exclusion_streams_run_fused(name):
 def test_gop1080p_all_frames_fused():
     """The 96-frame 1080p GOP stream (IDR every 32, P with intra refresh)
     must decode ENTIRELY through the fused device program — I-frames via
-    the intra wavefront scan — bit-exact vs dec265 (VERDICT r2 item 2).
-    In the DEFAULT gate since round 4 (VERDICT r3 item 9) — ~110 s on
-    the CPU backend; the 4K e2e golden decode is driver-run by bench.py
-    every round."""
+    the intra wavefront — bit-exact vs dec265. In the default gate
+    (~110 s on the CPU backend); the 4K golden decodes run on the GPU in
+    chip_smoke.py and bench.py."""
     from libde265_tpu.device_stream import DeviceStreamDecoder
     plans = _parse(os.path.join(DATA, "gop1080p.bin"))
     with open(os.path.join(DATA, "manifest_big.json")) as f:
@@ -145,7 +144,7 @@ def test_gop1080p_all_frames_fused():
         got = [hashlib.md5(pl.tobytes()).hexdigest() for pl in planes]
         want = [m["md5"][i][k] for k in ("y", "u", "v")]
         assert got == want, f"gop1080p frame {i} (poc {p.poc})"
-        n_fast += bool(dec.frames[p.frame_id]["fast"])
+        n_fast += bool(dec.frames[p.frame_id]["route"] == "fused")
     assert n_fast == len(plans), \
         f"only {n_fast}/{len(plans)} frames took the fused path"
 

@@ -3,8 +3,12 @@ MC (ops/inter_dense_jax) on random motion fields, including far
 out-of-range MVs (edge-clip path), bi-pred, weighted pred, and 10-bit.
 The dense path is itself bit-exact vs the numpy reference on all golden
 vectors, so agreement here transfers that guarantee."""
+import os
+
 import numpy as np
 import pytest
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def _rand_case(seed, H, W, R, bitdepth, weighted, wild_mv):
@@ -65,30 +69,12 @@ def test_mc_tile_matches_dense(seed, bitdepth, weighted, wild_mv):
                 f"{aa[tuple(bad[0])]} vs {bb[tuple(bad[0])]}")
 
 
-@pytest.mark.parametrize("seed,bitdepth", [(0, 8), (1, 10)])
-def test_mc_pallas_filter_matches_xla(seed, bitdepth):
-    """The pallas tap-filter kernel (interpret mode on CPU) must agree
-    bit-for-bit with the XLA tap passes, incl. bi-pred and 10-bit."""
-    import jax.numpy as jnp
-    from libde265_tpu.ops.mc_tile_jax import build_tables, mc_frame_tile
-    refs_y, refs_cb, refs_cr, mv, slot, pf, wts, ex = _rand_case(
-        seed, 64, 128, 4, bitdepth, False, True)
-    tabs = build_tables(jnp.asarray(refs_y), jnp.asarray(refs_cb),
-                        jnp.asarray(refs_cr), bitdepth=bitdepth)
-    args = (tabs, (64, 128), jnp.asarray(mv), jnp.asarray(slot),
-            jnp.asarray(pf), jnp.asarray(wts), jnp.asarray(ex), bitdepth)
-    a = mc_frame_tile(*args, use_pallas=False)
-    b = mc_frame_tile(*args, use_pallas=True)
-    for ci in range(3):
-        assert (np.asarray(a[ci]) == np.asarray(b[ci])).all(), ci
-
-
 @pytest.mark.parametrize("seed,bitdepth,weighted", [
     (0, 8, False), (1, 8, True), (2, 10, False),
 ])
 def test_mc_mxu_matches_vpu(seed, bitdepth, weighted):
-    """The class-sorted MXU luma MC (ops/mc_mxu_jax) must agree
-    bit-for-bit with the VPU tap passes, incl. wild MVs (edge clamp),
+    """The class-masked matmul luma MC (ops/mc_mxu_jax) must agree
+    bit-for-bit with the elementwise tap passes, incl. wild MVs (edge clamp),
     bi-pred, weighted pred, 10-bit, and per-stream class capacities."""
     import jax.numpy as jnp
     from libde265_tpu.ops.mc_tile_jax import build_tables, mc_frame_tile
@@ -125,8 +111,8 @@ def test_mc_mxu_matches_vpu(seed, bitdepth, weighted):
 
 @pytest.mark.parametrize("mode", ["const", "hconst", "vconst"])
 def test_mc_mxu_single_class_shortcuts(mode):
-    """Constant-phase streams take the sort-free MXU shortcuts; they
-    must stay bit-exact vs the VPU path."""
+    """Constant-phase streams take the mask-free matmul shortcuts; they
+    must stay bit-exact vs the elementwise tap path."""
     import jax.numpy as jnp
     from libde265_tpu.ops.mc_tile_jax import build_tables, mc_frame_tile
     from libde265_tpu.ops.mc_mxu_jax import (caps_from_counts,
@@ -161,43 +147,12 @@ def test_mc_mxu_single_class_shortcuts(mode):
         assert (np.asarray(a[ci]) == np.asarray(b[ci])).all(), ci
 
 
-@pytest.mark.parametrize("T,dt", [(16, "uint8"), (8, "uint8"), (16, "int16")])
-def test_pallas_table_builder_matches_xla(T, dt):
-    """The Mosaic tile-table builder (interpret mode on CPU) must emit
-    exactly the XLA builder's layout for both tile sides and dtypes,
-    including the multi-band-per-step batching."""
-    import jax.numpy as jnp
-    from libde265_tpu.ops.mc_tile_jax import (build_tile_table_y,
-                                              build_tile_table_c)
-    from libde265_tpu.ops.pallas.mc_tables import build_tile_table_pallas
-    rng = np.random.RandomState(3)
-    H, W = (72, 136)
-    pad = 16 if T == 16 else 8
-    padded = jnp.asarray(rng.randint(
-        0, 256, (2, H + 2 * pad, W + 2 * pad)).astype(np.int16))
-    ref_fn = build_tile_table_y if T == 16 else build_tile_table_c
-    want = np.asarray(ref_fn(padded, getattr(jnp, dt)))
-    got = np.asarray(build_tile_table_pallas(
-        padded, T, out_dtype=getattr(jnp, dt), interpret=True))
-    assert got.shape == want.shape
-    # ROWPAD layout-padding rows are don't-care (zeros in XLA, roll
-    # residue in pallas — never gathered); compare the valid rows
-    from libde265_tpu.ops.mc_tile_jax import ROWPAD
-    Hp, Wp = padded.shape[1:]
-    nty = (Hp - 12) // 4 if T == 16 else (Hp - 4) // 4
-    ntx = (Wp - 12) // 4 if T == 16 else (Wp - 4) // 4
-    nty_p = -(-nty // ROWPAD) * ROWPAD
-    wv = want.reshape(2, nty_p, ntx, T * T)[:, :nty]
-    gv = got.reshape(2, nty_p, ntx, T * T)[:, :nty]
-    assert (gv == wv).all()
-
-
 @pytest.mark.parametrize("seed,bitdepth,weighted", [
     (0, 8, False), (1, 8, True), (2, 10, False), (3, 8, False),
 ])
 def test_mc_chroma_mxu_matches_vpu(seed, bitdepth, weighted):
-    """The paired Cb|Cr class-sorted MXU chroma MC (ops/mc_mxu_jax
-    .mc_chroma_mxu) must agree bit-for-bit with the VPU epel passes,
+    """The paired Cb|Cr class-masked matmul chroma MC (ops/mc_mxu_jax
+    .mc_chroma_mxu) must agree bit-for-bit with the elementwise epel passes,
     incl. wild MVs (edge clamp), bi-pred, weighted pred, 10-bit."""
     import jax.numpy as jnp
     from libde265_tpu.ops.mc_tile_jax import build_tables, mc_frame_tile
@@ -230,44 +185,131 @@ def test_mc_chroma_mxu_matches_vpu(seed, bitdepth, weighted):
                 f"{aa[tuple(bad[0])]} vs {bb[tuple(bad[0])]}")
 
 
-def test_inplace_table_update_matches_build_dus():
-    """update_tile_table_pallas (scalar-prefetch slot + in/out aliasing)
-    must equal XLA build + dynamic_update_slice on the valid rows, for
-    luma and both halves of the interleaved chroma table, and must leave
-    the other slots untouched."""
+def _tile_table_np(padded, T):
+    """Row-layout oracle: one row per stride-4 TxT tile, element
+    [c*T + r] = tile[r, c]."""
+    from numpy.lib.stride_tricks import sliding_window_view
+    R, Hp, Wp = padded.shape
+    nty, ntx = (Hp - (T - 4)) // 4, (Wp - (T - 4)) // 4
+    win = sliding_window_view(padded, (T, T), axis=(1, 2))
+    tiles = win[:, 0:4 * nty:4, 0:4 * ntx:4][:, :nty, :ntx]   # (R,ty,tx,r,c)
+    return tiles.transpose(0, 1, 2, 4, 3).reshape(R * nty * ntx, T * T)
+
+
+@pytest.mark.parametrize("T,dt", [(16, "uint8"), (8, "uint8"),
+                                  (16, "int16"), (8, "int16")])
+def test_tile_table_builder_matches_row_layout(T, dt):
+    """build_tile_table_y/_c emit exactly the stride-4 tile rows of the
+    padded planes (luma T=16, chroma T=8; uint8 and int16 tables)."""
+    import jax.numpy as jnp
+    from libde265_tpu.ops.mc_tile_jax import (build_tile_table_y,
+                                              build_tile_table_c,
+                                              n_tiles_y, n_tiles_c)
+    rng = np.random.RandomState(T)
+    H, W = 72, 136
+    pad = 16 if T == 16 else 8
+    hi = 256 if dt == "uint8" else 1024
+    padded = rng.randint(0, hi, (2, H + 2 * pad, W + 2 * pad)) \
+        .astype(np.int16)
+    fn = build_tile_table_y if T == 16 else build_tile_table_c
+    got = np.asarray(fn(jnp.asarray(padded), getattr(jnp, dt)))
+    nty, ntx = (n_tiles_y if T == 16 else n_tiles_c)(H, W)
+    assert got.shape == (2 * nty * ntx, T * T)
+    assert got.dtype == np.dtype(dt)
+    np.testing.assert_array_equal(got, _tile_table_np(padded, T)
+                                  .astype(dt))
+
+
+@pytest.mark.parametrize("mf,name", [("manifest_inter.json", "p_mv"),
+                                     ("manifest_rext.json",
+                                      "rext_444_inter")])
+def test_update_tables_writes_only_its_slot(mf, name):
+    """update_tables rebuilds one DPB slot's tile rows (luma + the
+    interleaved Cb|Cr rows for 4:2:0, luma only otherwise) and leaves
+    every other slot's rows untouched."""
     import jax
     import jax.numpy as jnp
-    from libde265_tpu.ops.mc_tile_jax import (build_tables, PAD_Y, PAD_C,
-                                              n_tiles_y, n_tiles_c)
-    from libde265_tpu.ops.pallas.mc_tables import update_tile_table_pallas
-    rng = np.random.RandomState(7)
-    H, W = 72, 136
-    NS = 4
-    Y = rng.randint(0, 256, (H, W)).astype(np.int16)
-    Cb = rng.randint(0, 256, (H // 2, W // 2)).astype(np.int16)
-    Cr = rng.randint(0, 256, (H // 2, W // 2)).astype(np.int16)
-    ny, nc = build_tables(jnp.asarray(Y)[None], jnp.asarray(Cb)[None],
-                          jnp.asarray(Cr)[None], bitdepth=8)
-    ry, rc = ny.shape[0], nc.shape[0]
-    ty = jnp.zeros((NS * ry, 256), jnp.uint8)
-    tc = jnp.zeros((NS * rc, 128), jnp.uint8)
-    slot = 2
-    want_y = jax.lax.dynamic_update_slice(ty, ny, (slot * ry, 0))
-    want_c = jax.lax.dynamic_update_slice(tc, nc, (slot * rc, 0))
-    py = jnp.pad(jnp.asarray(Y), ((PAD_Y,) * 2,) * 2, mode="edge")
-    pcb = jnp.pad(jnp.asarray(Cb), ((PAD_C,) * 2,) * 2, mode="edge")
-    pcr = jnp.pad(jnp.asarray(Cr), ((PAD_C,) * 2,) * 2, mode="edge")
-    got_y = update_tile_table_pallas(ty, py[None], np.int32(slot), 16,
-                                     interpret=True)
-    got_c = update_tile_table_pallas(tc, jnp.stack([pcb, pcr]),
-                                     np.int32(slot), 8, interpret=True)
-    ntyp, ntx = n_tiles_y(H, W)
-    ntyc, ntxc = n_tiles_c(H // 2, W // 2)
-    nty_true = (H + 20) // 4
-    ntyc_true = (H // 2 + 12) // 4
-    gy = np.asarray(got_y).reshape(NS, ntyp, ntx, 256)
-    wy = np.asarray(want_y).reshape(NS, ntyp, ntx, 256)
-    gc = np.asarray(got_c).reshape(NS, ntyc, ntxc, 128)
-    wc = np.asarray(want_c).reshape(NS, ntyc, ntxc, 128)
-    assert (gy[:, :nty_true] == wy[:, :nty_true]).all()
-    assert (gc[:, :ntyc_true] == wc[:, :ntyc_true]).all()
+    from libde265_tpu.api import parse_stream_native
+    from libde265_tpu.frame_program import (REF_SLOTS, stream_cfg,
+                                            table_geom, update_tables)
+    from libde265_tpu.ops.mc_tile_jax import (build_tile_table_y,
+                                              build_tables, PAD_Y)
+    with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+        plans = parse_stream_native(f.read())
+    cfg = stream_cfg(plans, plans[0].sps)
+    (ry, wy), (rc, wc), dt = table_geom(cfg)
+    Hc, Wc = cfg.chroma_dims
+    rng = np.random.RandomState(3)
+    ty0 = rng.randint(0, 200, (REF_SLOTS * ry, wy)).astype(dt)
+    tc0 = rng.randint(0, 200, (REF_SLOTS * rc, wc)).astype(dt)
+    Y = rng.randint(0, 256, (cfg.H, cfg.W)).astype(np.int32)
+    Cb = rng.randint(0, 256, (Hc, Wc)).astype(np.int32)
+    Cr = rng.randint(0, 256, (Hc, Wc)).astype(np.int32)
+    slot = 5
+    ty, tc = jax.jit(update_tables, static_argnames=("cfg",))(
+        jnp.asarray(ty0), jnp.asarray(tc0), jnp.asarray(Y), jnp.asarray(Cb),
+        jnp.asarray(Cr), np.int32(slot), cfg=cfg)
+    ty, tc = np.asarray(ty), np.asarray(tc)
+    if cfg.chroma_fmt == 1:
+        ny, nc = (np.asarray(a) for a in build_tables(
+            Y[None], Cb[None], Cr[None], bitdepth=cfg.bitdepth))
+        np.testing.assert_array_equal(tc[slot * rc:(slot + 1) * rc], nc)
+    else:
+        ny = np.asarray(build_tile_table_y(
+            np.pad(Y, PAD_Y, mode="edge")[None].astype(np.int16), dt))
+        np.testing.assert_array_equal(tc, tc0)
+    np.testing.assert_array_equal(ty[slot * ry:(slot + 1) * ry], ny)
+    keep = np.ones(REF_SLOTS, bool)
+    keep[slot] = False
+    np.testing.assert_array_equal(
+        ty.reshape(REF_SLOTS, ry, wy)[keep],
+        ty0.reshape(REF_SLOTS, ry, wy)[keep])
+    if cfg.chroma_fmt == 1:
+        np.testing.assert_array_equal(
+            tc.reshape(REF_SLOTS, rc, wc)[keep],
+            tc0.reshape(REF_SLOTS, rc, wc)[keep])
+
+
+class _Refs:
+    class _P:
+        pass
+
+    def __init__(self, planes):
+        self._planes = planes
+        self.pics = self
+
+    def __getitem__(self, fid):
+        p = self._P()
+        p.planes = self._planes[fid]
+        return p
+
+
+@pytest.mark.parametrize("name", ["p_mv", "p_10bit", "p_wp"])
+def test_mc_tap_path_matches_inter_ref(name):
+    """The tile-table MC's tap path (no class capacities) against the
+    numpy MC oracle on every P frame of real streams: 8-bit, 10-bit and
+    weighted prediction, with references from the numpy decode."""
+    from libde265_tpu.api import parse_stream_native
+    from libde265_tpu.ops import inter_ref
+    from libde265_tpu.ops.mc_tile_jax import motion_compensate_frame_tile
+    from libde265_tpu.reconstruct import reconstruct_frame
+    with open(os.path.join(DATA, name + ".bin"), "rb") as f:
+        plans = parse_stream_native(f.read())
+    decoded = {}
+    refs = _Refs(decoded)
+    n_checked = 0
+    for plan in plans:
+        bd = plan.sps.BitDepthY
+        if plan.pus:
+            shape = [(plan.H, plan.W), (plan.H // 2, plan.W // 2),
+                     (plan.H // 2, plan.W // 2)]
+            dt = np.uint8 if bd == 8 else np.uint16
+            want = [np.zeros(s, dt) for s in shape]
+            got = [np.zeros(s, dt) for s in shape]
+            inter_ref.motion_compensate_frame(plan, want, refs)
+            motion_compensate_frame_tile(plan, got, refs, bd)
+            for ci in range(3):
+                np.testing.assert_array_equal(got[ci], want[ci])
+            n_checked += 1
+        decoded[plan.frame_id] = reconstruct_frame(plan, dpb_images=refs)
+    assert n_checked >= 2

@@ -1,9 +1,8 @@
 """Native (C++) plan packing: fe_pack_frame must produce BYTE-IDENTICAL
 per-dtype blob buffers to the numpy pack_frame+pack_blob path for every
-supported stream shape (VERDICT r3 item 1 — the host pack was the 4K
-pipeline wall). Reference analog: the decoder packs nothing — it decodes
-in place (/root/reference/libde265/slice.cc:4664-4830); this stage is
-TPU-specific, so the numpy path is its oracle."""
+supported stream shape. Reference analog: the decoder packs nothing — it
+decodes in place (slice.cc:4664-4830); this stage exists only for the
+device path, so the numpy path is its oracle."""
 import json
 import os
 
@@ -70,7 +69,7 @@ def test_native_pack_matches_numpy(mf, name):
     pframes = [p for p in frames if not frame_has_intra(p)]
     if not pframes:
         pytest.skip("no pure-inter frames")
-    cfg = stream_cfg(plans, plans[0].sps, use_pallas=False)
+    cfg = stream_cfg(plans, plans[0].sps)
     cfg_p = replace(cfg, intra=(), intra_C=0)
     fid_slot = {p.frame_id: i % REF_SLOTS for i, p in enumerate(frames)}
     pk = [pack_frame(p, cfg_p, fid_slot, real_slots=True)

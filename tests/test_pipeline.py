@@ -52,7 +52,7 @@ def test_pipelined_matches_golden(mf, name):
         got = [hashlib.md5(pl.tobytes()).hexdigest() for pl in planes]
         want = [man["md5"][i][k] for k in ("y", "u", "v")]
         assert got == want, f"{name} frame {i} (poc {p.poc})"
-        assert dec.frames[p.frame_id]["fast"]
+        assert dec.frames[p.frame_id]["route"] == "fused"
 
 
 def test_pipelined_falls_back_on_hybrid_streams():

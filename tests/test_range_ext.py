@@ -76,7 +76,7 @@ def test_device_backend_golden(name):
     "rext_mono_10bit", "rext_422_nxn", "rext_444_nxn",
 ])
 def test_rext_runs_fused(name):
-    """VERDICT r3 item 4: 4:2:2 / 4:4:4 / monochrome frames must run
+    """4:2:2 / 4:4:4 / monochrome frames must run
     the FUSED device frame program (frame_compatible no longer excludes
     chroma formats) — dense in-program epel chroma MC, per-axis deblock/
     SAO geometry, per-axis intra availability — bit-exact vs dec265.
@@ -98,6 +98,6 @@ def test_rext_runs_fused(name):
         want = [man["md5"][i][k] for k in (("y",) if mono
                                            else ("y", "u", "v"))]
         assert got == want, f"{name} frame {i} (poc {p.poc})"
-        n_fast += bool(dec.frames[p.frame_id]["fast"])
+        n_fast += bool(dec.frames[p.frame_id]["route"] == "fused")
     assert n_fast == len(plans), \
         f"{name}: only {n_fast}/{len(plans)} frames took the fused path"

@@ -40,7 +40,7 @@ def _decode_sharded(name, ndev):
     n_fast = 0
     for i, plan in enumerate(plans):
         dec.decode_plan(plan, i)
-        if dec.frames[plan.frame_id]["fast"]:
+        if dec.frames[plan.frame_id]["route"] == "fused":
             n_fast += 1
     return plans, dec, n_fast
 

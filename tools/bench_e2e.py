@@ -12,13 +12,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(os.path.dirname(os.path.dirname(
-                              os.path.abspath(__file__))), ".jax_cache"))
-    except Exception:
-        pass
+    from libde265_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     path = sys.argv[1]
     backend = sys.argv[2] if len(sys.argv) > 2 else "device"
     iters = int(sys.argv[3]) if len(sys.argv) > 3 else 3

@@ -5,8 +5,8 @@ motion replay) and plan extraction, per stream and thread count.
 The serial CABAC stage is the classic software-decode ceiling
 (reference: frame-parallel thread pool, decctx.cc); this measures
 whether the host front end can feed the device pipeline at target rate.
-Writes one JSON line per (stream, threads) config; the driver-facing
-artifact is FRONTEND.json at the repo root.
+Writes one JSON line per (stream, threads) config (and the list to
+out.json when given).
 
 Usage: python tools/bench_frontend.py [out.json]
 """
@@ -22,8 +22,7 @@ DATA = os.path.join(REPO, "tests", "data")
 # heavy self-generated streams (38-157 Mbps) plus the comparable-bitrate
 # "light" streams — the reference's published 284/150/36 fps numbers were
 # measured on broadcast-rate content (BASELINE.md), so the light rows are
-# the apples-to-apples parse-throughput comparison; REFCOMP.json pins the
-# same-machine dec265 full-decode rates next to these.
+# the apples-to-apples parse-throughput comparison.
 STREAMS = ("ld_1080p_wpp", "gop1080p", "ld4k_light", "ld4k",
            "ld720p_light", "ld1080p_light")
 
@@ -76,10 +75,9 @@ def main():
             r = bench(stream, threads)
             print(json.dumps(r))
             out.append(r)
-    dest = sys.argv[1] if len(sys.argv) > 1 else \
-        os.path.join(REPO, "FRONTEND.json")
-    with open(dest, "w") as f:
-        json.dump(out, f, indent=1)
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

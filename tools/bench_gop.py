@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""GOP-parallel decode scaling benchmark (VERDICT round-1 item 8 /
-BASELINE.json config 5): decodes the long multi-IRAP 1080p stream
-(tests/data/gop1080p.bin, 16 IDR-delimited GOPs) with 1/2/4/8 worker
-processes via parallel/gop_parallel.py and reports frames/s and scaling
+"""GOP-parallel host decode scaling benchmark: decodes the long
+multi-IRAP 1080p stream (tests/data/gop1080p.bin, 16 IDR-delimited GOPs)
+with 1/2/4/8 host worker processes via parallel/gop_parallel.py
+(backend "numpy"; the device path is tools/bench_gop_device.py) and
+reports frames/s and scaling
 efficiency. Every run's output is MD5-verified against the dec265 goldens
 (manifest_big.json), so the parallel split is proven bit-exact, not just
 fast. Counterpart of the frame-level parallelism the reference leaves as a
@@ -27,7 +28,7 @@ def main():
     ap.add_argument("--workers", default="1,2,4,8")
     ap.add_argument("--stream", default="gop1080p")
     args = ap.parse_args()
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")   # host workers only
 
     from libde265_tpu.parallel.gop_parallel import (decode_gop_parallel,
                                                     split_gops)
@@ -43,7 +44,8 @@ def main():
     base_fps = None
     for nw in (int(x) for x in args.workers.split(",")):
         t0 = time.time()
-        frames = decode_gop_parallel(stream, workers=nw, native=True)
+        frames = decode_gop_parallel(stream, workers=nw, native=True,
+                                     backend="numpy")
         dt = time.time() - t0
         assert len(frames) == nf, (len(frames), nf)
         ysz, csz = w * h, (w // 2) * (h // 2)

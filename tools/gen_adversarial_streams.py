@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Adversarial encoder-knob cross-products (VERDICT r3 item 10).
+"""Adversarial encoder-knob cross-products.
 
 Every committed golden stream so far isolates one feature; real-world
 (and conformance-suite) streams combine them. This emits vectors from
@@ -92,7 +92,7 @@ CASES = {
         strong_intra_smoothing=True, intra_period=2, sao=True,
         disable_deblocking=False)),
     # 1-CTB-wide pictures: WPP rows re-init the CABAC models instead of
-    # inheriting a snapshot (slice.cc:4696-4703) — the ADVICE r4 finding;
+    # inheriting a snapshot (slice.cc:4696-4703);
     # crossed with dependent slices to hit both width-1 restore branches
     "adv_w1_wpp": (4, dict(
         width=32, height=96, qp=30, log2_ctb=5, cu_log2=4,

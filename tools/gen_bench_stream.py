@@ -101,8 +101,7 @@ def main():
     # class shortcuts, full class-sort machinery); heavy: arbitrary MVDs
     # force dense residuals
     wpp = "--wpp" in sys.argv      # entropy_coding_sync: dec265 -t4 can
-                                   # actually thread these (fair same-
-                                   # machine comparison, VERDICT r3 item 6)
+                                   # actually thread these
     cfg = EncoderConfig(width=w, height=h, qp=37 if (light or mixed) else 34,
                         inter_mode="gmv" if (light or mixed) else "mv",
                         global_mv=(-20, -12),

@@ -67,7 +67,7 @@ CASES = [
           mv_patterns=((133, 67), (-240, -125), (511, 3), (1, 2),
                        (-397, 241), (64, -64), (-2, -2), (300, 300)))),
     # per-CU jittered qpel MVs spread over all 256 (phase, alignment)
-    # classes per axis: the class-sorted MXU MC's general path, e2e
+    # classes per axis: the class-masked matmul MC's general path, e2e
     ("mixedmv_720p", 1280, 720, 3,
      dict(qp=32, inter_mode="gmv", global_mv=(-20, -12), mv_jitter=6,
           inter_residual=True, log2_ctb=6, cu_log2=4, num_ref_l0=2,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Generate the committed adversarial corpus (VERDICT r2 item 9):
+"""Generate the committed adversarial corpus:
 deterministic bit-flip / truncation / duplication / garbage mutations of
 small committed streams, written as tests/data/id_NNN_<kind>.bin — the
 'id_' prefix marks AFL-style corpora for tools/decodestreams.py (allowed

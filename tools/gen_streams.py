@@ -4,7 +4,7 @@ with the reference encoder (built out-of-tree in .ref_build), then decode them
 back with the reference decoder to produce golden YUV + per-plane MD5s.
 
 The streams + golden MD5s are committed under tests/data/ and serve as the
-bit-exactness oracle for the TPU decoder (replicating the SEI decoded-picture-
+bit-exactness oracle for the device decoder (replicating the SEI decoded-picture-
 hash strategy of the reference: /root/reference/libde265/sei.cc:273-360).
 
 Usage: python tools/gen_streams.py

@@ -4,7 +4,7 @@
 The reference ships a Qt player (sherlock265/) that scrubs a stream and
 toggles structure overlays (visualize.cc: CB/TB grids, PB motion, QP
 map, slice/tile colouring). This environment has no display server, so
-the TPU-era equivalent renders the same layers into a single
+this equivalent renders the same layers into a single
 self-contained HTML file: frame slider + per-layer checkboxes, each
 layer an RGBA image stacked with CSS; works in any browser, ships as
 one artifact.
