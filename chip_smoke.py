@@ -163,22 +163,6 @@ def phase_formats():
         + " ".join(done))
 
 
-class _Refs:
-    """dpb.pics[fid].planes view of a decoder's host planes."""
-
-    class _P:
-        pass
-
-    def __init__(self, dec):
-        self.dec = dec
-        self.pics = self
-
-    def __getitem__(self, fid):
-        p = self._P()
-        p.planes = self.dec.planes_of(fid)
-        return p
-
-
 def _same(a, b, what):
     a, b = np.asarray(a), np.asarray(b)
     assert a.shape == b.shape, (what, a.shape, b.shape)
@@ -193,6 +177,7 @@ def phase_kernels(dec, plans):
     import jax
     import jax.numpy as jnp
     from libde265_tpu import frame_program as fp
+    from libde265_tpu.device_stream import _HostRefShim
     from libde265_tpu.ops import inter_ref, transform_ref, transform_jax
     from libde265_tpu.ops.deblock_ref import deblock_frame
     from libde265_tpu.ops.mc_tile_jax import motion_compensate_frame_tile
@@ -201,7 +186,7 @@ def phase_kernels(dec, plans):
     cfg = dataclasses.replace(dec.cfg, intra=(), intra_C=0)
     idr, pf = plans[0], plans[1]
     bd = cfg.bitdepth
-    refs = _Refs(dec)
+    refs = _HostRefShim(dec)
 
     # (first: reading plan.tus / plan.pus below releases the packed arrays)
     prog = fp.get_program(cfg)

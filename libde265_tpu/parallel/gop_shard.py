@@ -165,8 +165,12 @@ def decode_gops_sharded(plans, sps, mesh, emit_frames=False):
     every decoded frame's planes (G, F, H, W) in per-GOP decode order."""
     prog, args, gops = _shard_args(plans, sps, mesh,
                                    emit_frames=emit_frames)
-    out = prog(*args)
-    # frame -> (gop, slot) map for verification (last write per slot)
+    return prog(*args), frame_slots(gops), gops
+
+
+def frame_slots(gops):
+    """{frame_id: (gop_idx, slot, poc)}: where each frame of the sharded
+    decode is written (the last write per slot survives)."""
     where = {}
     for gi, g in enumerate(gops):
         fid_slot = {g[0].frame_id: 0}
@@ -174,4 +178,4 @@ def decode_gops_sharded(plans, sps, mesh, emit_frames=False):
             fid_slot[p.frame_id] = 1 + i % (REF_SLOTS - 1)
         for p in g:
             where[p.frame_id] = (gi, fid_slot[p.frame_id], p.poc)
-    return out, where, gops
+    return where

@@ -1,5 +1,6 @@
 """Device entry points: the compile-cache location, the chip smoke
-script's refusal without a GPU, the per-frame decode route record, and
+script's and the timing tools' refusal without a GPU, the per-frame
+decode route record, and
 the GOP-parallel device path's error propagation."""
 import os
 import shutil
@@ -48,6 +49,22 @@ def test_chip_smoke_fails_without_gpu():
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
     assert "no GPU" in r.stderr
+
+
+@pytest.mark.parametrize("cmd", [
+    ["bench.py"],
+    ["tools/profile_frame_stages.py"],
+    ["tools/bench_gop_device.py"],
+    ["tools/bench_e2e.py", "tests/data/p_mv.bin", "device"],
+])
+def test_timing_tools_fail_without_gpu(cmd):
+    """No timing entry point reports device numbers from the CPU."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, os.path.join(REPO, cmd[0])]
+                       + cmd[1:], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0
+    assert "GPU" in r.stderr and not r.stdout.strip()
 
 
 def test_chip_smoke_fails_outside_the_repo(tmp_path):

@@ -270,33 +270,18 @@ def test_update_tables_writes_only_its_slot(mf, name):
             tc0.reshape(REF_SLOTS, rc, wc)[keep])
 
 
-class _Refs:
-    class _P:
-        pass
-
-    def __init__(self, planes):
-        self._planes = planes
-        self.pics = self
-
-    def __getitem__(self, fid):
-        p = self._P()
-        p.planes = self._planes[fid]
-        return p
-
-
 @pytest.mark.parametrize("name", ["p_mv", "p_10bit", "p_wp"])
 def test_mc_tap_path_matches_inter_ref(name):
     """The tile-table MC's tap path (no class capacities) against the
     numpy MC oracle on every P frame of real streams: 8-bit, 10-bit and
     weighted prediction, with references from the numpy decode."""
-    from libde265_tpu.api import parse_stream_native
+    from libde265_tpu.api import _RefShim, parse_stream_native
     from libde265_tpu.ops import inter_ref
     from libde265_tpu.ops.mc_tile_jax import motion_compensate_frame_tile
     from libde265_tpu.reconstruct import reconstruct_frame
     with open(os.path.join(DATA, name + ".bin"), "rb") as f:
         plans = parse_stream_native(f.read())
-    decoded = {}
-    refs = _Refs(decoded)
+    refs = _RefShim()
     n_checked = 0
     for plan in plans:
         bd = plan.sps.BitDepthY
@@ -311,5 +296,6 @@ def test_mc_tap_path_matches_inter_ref(name):
             for ci in range(3):
                 np.testing.assert_array_equal(got[ci], want[ci])
             n_checked += 1
-        decoded[plan.frame_id] = reconstruct_frame(plan, dpb_images=refs)
+        refs.add(plan.frame_id, plan,
+                 reconstruct_frame(plan, dpb_images=refs))
     assert n_checked >= 2

@@ -29,19 +29,13 @@ def _random_planes(plan, rng):
 
 
 def _device_sao(plan, cfg, planes):
+    """The fused program's SAO stage (frame_program.sao_planes)."""
     import jax.numpy as jnp
-    from libde265_tpu.frame_program import filter_grids
-    from libde265_tpu.ops.filter_plan_jax import plan_sao_device
-    from libde265_tpu.ops.sao_jax import sao_apply
-    t = {k: jnp.asarray(v) for k, v in filter_grids(plan, cfg).items()}
-    out = []
-    for ci, p in enumerate(planes):
-        if ci and cfg.mono:
-            continue
-        x = jnp.asarray(p.astype(np.int32))
-        maps = plan_sao_device(t, cfg.scfg, ci)
-        out.append(np.asarray(sao_apply(x, *maps, bitdepth=cfg.bitdepth)))
-    return out
+    from libde265_tpu import frame_program as fp
+    t = {k: jnp.asarray(v) for k, v in fp.filter_grids(plan, cfg).items()}
+    out = fp.sao_planes(*(jnp.asarray(p.astype(np.int32)) for p in planes),
+                        t, cfg)
+    return [np.asarray(p) for p in out[:1 if cfg.mono else 3]]
 
 
 @pytest.mark.parametrize("name", ["p_sao", "i_deblk_sao", "p_filters",

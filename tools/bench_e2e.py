@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """End-to-end decode benchmark on a real stream: native C++ front-end +
-selected reconstruction backend. Prints per-stage timings and fps.
+selected reconstruction backend. Prints per-stage timings and fps. The
+device backend needs a GPU: it fails when JAX finds none.
 
 Usage: python tools/bench_e2e.py stream.bin [numpy|device] [iters]
 """
@@ -17,6 +18,11 @@ def main():
     path = sys.argv[1]
     backend = sys.argv[2] if len(sys.argv) > 2 else "device"
     iters = int(sys.argv[3]) if len(sys.argv) > 3 else 3
+    if backend == "device":
+        import jax
+        if jax.default_backend() != "gpu":
+            sys.exit(f"the device backend needs a GPU; JAX backend is "
+                     f"{jax.default_backend()!r}")
     data = open(path, "rb").read()
     from libde265_tpu.api import decode_stream_native
     # warmup (compiles cached)
